@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
-1. Builds kernels A, B and C from ``vispeech_tpu_torch/csrc`` (one nvcc per
-   source, all at once) and prints the build time.
+1. Builds kernels A, B, C (serving) and E, F (training) from
+   ``vispeech_tpu_torch/csrc`` (one nvcc per source, all at once) and
+   prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (TF32 off) and times both: A at T = 1400 and 512,
    B at T = 1400 with L = 4 and a speaker, C at a 1400-frame bucket
    (358 400 samples) in bf16 and f32.
+2b. E and F, forward and backward with every gradient, at the training
+   shapes (B = 12, T = 1024): E with L = 16 and a speaker (enc_q) and
+   L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
+   f32 and with bf16 operands.
 3. Builds the engine at the full width of ``configs/config.json`` with
    weights drawn from a seed, resets the launch counters and serves three
    ``synthesize`` requests (one with explicit durations in the 1400-frame
@@ -18,9 +24,18 @@
    kernels in f32 against the plain f32 path on the CPU.  Two of
    the requests run again under torch.profiler: device time by kernel and
    the device's busy share of the wall time.
-4. Prints the per-kernel JSON line, per-request latency, audio seconds per
-   second, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+4. Writes a synthetic corpus (44.1 kHz, 24 utterances of 512-1024 frames)
+   to a temporary directory and trains at the full width of
+   ``configs/config.json`` (batch 12, bf16 ``tail_f32``): a warm-up step
+   through ``Trainer.train``, 5 timed steps with the launch counters
+   (E 5 + 5, F 14 + 14 per step), one profiled step, finite losses, moved
+   G and D parameters, a checkpoint and a fresh Trainer that resumes and
+   takes one more step.
+4b. One f32 train step at reduced depth and batch with the kernels on the
+   card against the plain versions on the host CPU, within 1e-4 relative,
+   and a control step with the bf16 stages on that must miss that limit.
+5. Prints the per-kernel JSON line, the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
 package is not beside this file, or when any phase fails.
@@ -30,8 +45,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -45,6 +62,10 @@ REPLACES = {
     "rel_attention": "vispeech_tpu/ops/pallas/flash_attention.py:103",
     "wn_stack": "vispeech_tpu/ops/pallas/wn_stack.py:105",
     "mrf_stage": "vispeech_tpu/ops/pallas/mrf_stage.py:197",
+    "wn_stack_train_fwd": "vispeech_tpu/ops/pallas/wn_stack_train.py:203",
+    "wn_stack_train_bwd": "vispeech_tpu/ops/pallas/wn_stack_train.py:285",
+    "rel_attention_train_fwd": "vispeech_tpu/ops/pallas/flash_attention_train.py:290",
+    "rel_attention_train_bwd": "vispeech_tpu/ops/pallas/flash_attention_train.py:369",
 }
 
 
@@ -162,6 +183,117 @@ def check_kernels(torch, dev):
     return rows
 
 
+def _held(name, outs, refs, bf16):
+    """Max error of each output against its plain version, within f32: 1e-4
+    of the tensor's peak (summation order); bf16 operands: 2^-7 of the peak,
+    one bf16 ulp in the peak's binade.  Raises on a miss."""
+    worst = 0.0
+    for label, a, b in zip(name[1], outs, refs):
+        err = (a.float() - b.float()).abs().max().item()
+        peak = b.float().abs().max().item()
+        tol = (2.0 ** -7 if bf16 else 1e-4) * max(peak, 1e-6)
+        ok = err <= tol
+        print(f"    {name[0]} {label}: max_abs_err {err:.3e}, peak {peak:.3e}, "
+              f"tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name[0]} {label} disagrees: {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_train_kernels(torch, dev):
+    """Phase 2b: kernels E and F, forward and backward, against their plain
+    versions on the card at the training shapes (B = 12, T = 1024)."""
+    from vispeech_tpu_torch.ops.kernels import rel_attention_train as F_
+    from vispeech_tpu_torch.ops.kernels import wn_stack_train as E_
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    rows = {}
+    B, T, C, K = 12, 1024, 192, 5
+    m = (torch.arange(T, device=dev)[None, :, None]
+         < torch.tensor([T - 37 * (i % 3) for i in range(B)], device=dev)[:, None, None]).float()
+    for L, label in ((16, "enc_q, speaker cond"), (4, "flow coupling")):
+        w_rs = rn(L, C, 2 * C, scale=0.05)
+        w_rs[-1, :, C:] = 0.0
+        b_rs = rn(L, 1, 2 * C, scale=0.1)
+        b_rs[-1, :, C:] = 0.0
+        args = (rn(B, T, C), m, rn(B, L, 2 * C, scale=0.3), rn(L, K, C, 2 * C, scale=0.03),
+                w_rs, b_rs)
+        dout = rn(B, T, C)
+        for bf16 in (False, True):
+            dt = "bfloat16" if bf16 else "float32"
+            print(f"kernel E wn_stack_train B={B} T={T} L={L} ({label}) {dt}:")
+            out, xs = E_._launch_fwd(*args, K, bf16)
+            ref, xs_ref = E_.wn_stack_train_plain_fwd(*args, K, bf16)
+            err_f = _held(("fwd", ("out", "xs")), (out, xs), (ref, xs_ref), bf16)
+            grads = E_._launch_bwd(dout, xs, *args[1:5], K, bf16)
+            refs = E_.wn_stack_train_plain_bwd(dout, xs_ref, *args[1:5], K, bf16)
+            err_b = _held(("bwd", ("dx", "dcond", "dW_in", "dW_rs", "db_rs")), grads, refs, bf16)
+            if L != 16 or not bf16:
+                continue
+            # the main path's largest call: enc_q, bf16 operands
+            per_layer = K * C * 2 * C + C * 2 * C
+            ms = time_ms(lambda: E_._launch_fwd(*args, K, bf16), 5)
+            plain = time_ms(lambda: E_.wn_stack_train_plain_fwd(*args, K, bf16), 5)
+            b_ms, b_by = bound(nbytes(*args, out, xs), 2.0 * B * T * L * per_layer, dt)
+            rows["wn_stack_train_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain,
+                                              bound_ms=b_ms, bound_by=b_by)
+            ms = time_ms(lambda: E_._launch_bwd(dout, xs, *args[1:5], K, bf16), 3)
+            plain = time_ms(lambda: E_.wn_stack_train_plain_bwd(dout, xs_ref, *args[1:5], K,
+                                                                bf16), 3)
+            bwd_flops = 2.0 * B * T * L * (3 * K * C * 2 * C + 2 * C * 2 * C)
+            b_ms, b_by = bound(nbytes(dout, xs, *args[1:5], *grads), bwd_flops, dt)
+            rows["wn_stack_train_bwd"] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain,
+                                              bound_ms=b_ms, bound_by=b_by)
+            for key in ("wn_stack_train_fwd", "wn_stack_train_bwd"):
+                r = rows[key]
+                print(f"  {key} L={L} {dt}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    B, H, T, d = 12, 2, 1024, 96
+    key_mask = (torch.arange(T, device=dev) < T - 37).float()[None].expand(B, T).contiguous()
+    args = (rn(B, H, T, d), rn(B, H, T, d), rn(B, H, T, d), rn(1, 9, d, scale=d ** -0.5),
+            rn(1, 9, d, scale=d ** -0.5), key_mask)
+    dout = rn(B, H, T, d)
+    for rate, bf16 in ((0.1, False), (0.0, False), (0.1, True)):
+        dt = "bfloat16" if bf16 else "float32"
+        print(f"kernel F rel_attention_train B={B} H={H} T={T} rate={rate} {dt}:")
+        out, lse = F_._launch_fwd(*args, 99, rate, 4, bf16)
+        ref, lse_ref = F_.relative_self_attention_train_plain_fwd(*args, 99, rate, 4, bf16)
+        err_f = _held(("fwd", ("out", "lse")), (out, lse), (ref, lse_ref), bf16)
+        grads = F_._launch_bwd(dout, *args, out, lse, 99, rate, 4, bf16)
+        refs = F_.relative_self_attention_train_plain_bwd(dout, *args, lse_ref, 99, rate, 4,
+                                                          bf16)
+        err_b = _held(("bwd", ("dq", "dk", "dv", "drel_k", "drel_v")), grads, refs, bf16)
+        if not bf16:
+            continue
+        ms = time_ms(lambda: F_._launch_fwd(*args, 99, rate, 4, bf16), 5)
+        plain = time_ms(lambda: F_.relative_self_attention_train_plain_fwd(
+            *args, 99, rate, 4, bf16), 5)
+        b_ms, b_by = bound(nbytes(*args, out, lse), 4.0 * B * H * T * T * d, dt)
+        rows["rel_attention_train_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain,
+                                               bound_ms=b_ms, bound_by=b_by)
+        ms = time_ms(lambda: F_._launch_bwd(dout, *args, out, lse, 99, rate, 4, bf16), 5)
+        plain = time_ms(lambda: F_.relative_self_attention_train_plain_bwd(
+            dout, *args, lse_ref, 99, rate, 4, bf16), 5)
+        # five T×T products: scores, dO·vᵀ, dv, dq, dk
+        b_ms, b_by = bound(nbytes(*args, out, lse, dout, *grads), 10.0 * B * H * T * T * d, dt)
+        rows["rel_attention_train_bwd"] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain,
+                                               bound_ms=b_ms, bound_by=b_by)
+        for key in ("rel_attention_train_fwd", "rel_attention_train_bwd"):
+            r = rows[key]
+            print(f"  {key} T={T} {dt} rate {rate}: {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
 def pinyin_text(n_syllables: int, offset: int = 0) -> str:
     syl = ["ni2", "hao3", "shi4", "jie4", "wo3", "men5", "zou3", "ba5", "zai4", "jian4",
            "xie4", "tian1", "qi4", "zhen1", "bu2", "cuo4", "chi1", "fan4", "le5", "ma5"]
@@ -216,10 +348,12 @@ def serve(torch, dev, cfg, state_dict):
     run()
     kernels.reset_launches()
     results, latency, batch, batch_s = run()
-    counts = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kernels.KERNELS}
+    counts = kernels.launch_counts()
 
-    expect = {"rel_attention": sum(n_a for _, _, n_a in requests),
-              "wn_stack": 4 * len(requests), "mrf_stage": len(requests)}
+    # serving runs under no_grad: the training kernels E and F never launch
+    expect = {k: 0 for k in counts}
+    expect.update({"rel_attention": sum(n_a for _, _, n_a in requests),
+                   "wn_stack": 4 * len(requests), "mrf_stage": len(requests)})
     n_list = [len(o["phones"]) for o in batch]
     totals = [max(int(o["duration"].sum()), 1) for o in batch]
     n_plans = len(plan_batches(totals))
@@ -252,29 +386,28 @@ def serve(torch, dev, cfg, state_dict):
     return engine, counts, expect, requests
 
 
-def profile_request(torch, engine, label, kw):
-    """Phase 3c: one request under torch.profiler: device time by kernel and
-    the device's busy share of the request's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, label, fn, top):
+    """``fn()`` once under torch.profiler: the device's busy share of its
+    wall time and the ``top`` device ops by time (phases 3c and 4)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
 
-    engine.synthesize(**kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.synthesize(**kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     if not events:
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    n_launch = sum(e.count for e in events)
     if busy_ms <= 0:
-        print(f"profile '{label}': wall {wall_ms:.2f} ms, device time not measured")
+        print(f"profile {label}: wall {wall_ms:.2f} ms, device time not measured")
         return
-    print(f"profile '{label}': wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {n_launch} device ops")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    print(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
@@ -306,6 +439,203 @@ def reference_check(torch, dev, cfg, state_dict):
         raise AssertionError(f"f32 kernel path disagrees with the plain path: {err}")
 
 
+TRAIN_SEED = 4321
+
+
+def _corpus(root, cfg, n_utts=24):
+    """A synthetic corpus at the config's rate and hop, frame lengths
+    spread over the 512-1024 buckets; → the config pointed at it."""
+    import dataclasses
+
+    from vispeech_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    d = cfg.data
+    train_list, val_list, data_root = write_synthetic_dataset(
+        root, d.sampling_rate, d.hop_length, n_utts=n_utts, dur_range=(4, 10),
+        n_phones_choices=(80, 95, 110, 125), seed=TRAIN_SEED)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(d, training_files=train_list,
+                                      validation_files=val_list),
+        train=dataclasses.replace(cfg.train, save_dir=os.path.join(root, "run"),
+                                  log_interval=1, eval_interval=10 ** 6))
+    return cfg, data_root
+
+
+def _param_snapshot(model):
+    return {n: p.detach().float().clone() for n, p in list(model.named_parameters())[::7]}
+
+
+def train_phase(torch, cfg, root):
+    """Phase 4: the Trainer at full width (batch 12, bf16 tail_f32): one
+    warm-up step, 5 timed steps with the launch counters, a profiled step,
+    the losses and parameter updates, a checkpoint and a resumed Trainer.
+    → the launch counts of the 5 timed steps."""
+    import numpy as np
+
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.train.loop import Trainer
+
+    cfg, data_root = _corpus(root, cfg)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, data_root=data_root)
+    print(f"train: Trainer built in {time.perf_counter() - t0:.2f} s: "
+          f"{len(trainer.train_set)} utterances, {trainer.steps_per_epoch} steps/epoch, "
+          f"bf16 stages {trainer.model_g.bf16_stages}, TF32 {trainer.step_fn.tf32}")
+    g0, d0 = _param_snapshot(trainer.model_g), _param_snapshot(trainer.model_d)
+    t0 = time.perf_counter()
+    trainer.train(max_steps=1)   # the user's entry point; writes ckpt_1.pt
+    torch.cuda.synchronize()
+    print(f"train: warm-up step (and checkpoint) {time.perf_counter() - t0:.2f} s")
+
+    d = cfg.data
+    batches = (batch for _, batch in trainer.batches(start_epoch=1))
+    times, audio_s, seg_s, all_metrics = [], 0.0, 0.0, []
+    kernels.reset_launches()
+    for _ in range(5):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step_fn(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        all_metrics.append({k: float(v) for k, v in metrics.items()})
+        audio_s += float(batch["spec_lengths"].sum()) * d.hop_length / d.sampling_rate
+        seg_s += batch["wav"].shape[0] * cfg.train.segment_size / d.sampling_rate
+        print(f"  step {trainer.global_step}: batch {tuple(batch['wav'].shape[:2])} "
+              f"({batch['wav'].shape[1] // d.hop_length} frames), {times[-1] * 1e3:.2f} ms, "
+              f"g={all_metrics[-1]['loss/g/total']:.3f} d={all_metrics[-1]['loss/d/total']:.3f} "
+              f"mel={all_metrics[-1]['loss/g/mel']:.3f}")
+    counts = kernels.launch_counts()
+    total = sum(times)
+    print(f"train: 5 steps in {total:.4f} s: {1e3 * total / 5:.2f} ms/step, "
+          f"{5 / total:.3f} steps/s, {audio_s / total:.2f} utterance audio-s/s "
+          f"({seg_s / total:.2f} s of decoded segments per s)")
+    for m in all_metrics:
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite training metrics: {bad}")
+    per_step = {"wn_stack_train_fwd": 5, "wn_stack_train_bwd": 5,
+                "rel_attention_train_fwd": 14, "rel_attention_train_bwd": 14}
+    expect = {k: 5 * v for k, v in per_step.items()}
+    expect.update(rel_attention=0, wn_stack=0, mrf_stage=0)
+    print(f"train launches over 5 steps: {counts}, expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"training launch counts {counts} != {expect}")
+
+    batch = next(batches)
+    batches.close()
+    profile(torch, f"train step ({batch['wav'].shape[1] // d.hop_length} frames)",
+            lambda: trainer.step_fn(batch), 12)
+    moved_g = any(not torch.equal(v, p) for v, p in zip(
+        g0.values(), _param_snapshot(trainer.model_g).values()))
+    moved_d = any(not torch.equal(v, p) for v, p in zip(
+        d0.values(), _param_snapshot(trainer.model_d).values()))
+    if not (moved_g and moved_d):
+        raise AssertionError(f"parameters did not move: G {moved_g}, D {moved_d}")
+
+    target = trainer.global_step + 1
+    trainer.train(max_steps=target)   # one more step through the entry point, then save
+    path = os.path.join(cfg.train.save_dir, f"ckpt_{target}.pt")
+    if not os.path.exists(path):
+        raise AssertionError(f"no checkpoint at {path}")
+    fresh = Trainer(cfg, data_root=data_root)
+    resumed = fresh.resume()
+    if resumed != target:
+        raise AssertionError(f"resumed at step {resumed}, expected {target}")
+    w_a = trainer.model_g.dec.conv_post.weight
+    if not torch.equal(w_a, fresh.model_g.dec.conv_post.weight):
+        raise AssertionError("the resumed generator differs from the saved one")
+    fresh.train(max_steps=target + 1)
+    if fresh.global_step != target + 1 or not os.path.exists(
+            os.path.join(cfg.train.save_dir, f"ckpt_{target + 1}.pt")):
+        raise AssertionError("the resumed Trainer did not take and save one more step")
+    print(f"train: checkpoint ckpt_{target}.pt written, a fresh Trainer resumed at step "
+          f"{resumed} and saved ckpt_{target + 1}.pt; losses finite, G and D moved")
+    del trainer, fresh
+    torch.cuda.empty_cache()
+    return counts
+
+
+TRAIN_REF_TOL = 1e-4
+
+
+def train_reference(torch, cfg):
+    """Phase 4b: one f32 train step at reduced depth and batch, kernels E
+    and F on the card against the plain versions on the host CPU: same
+    weights, dropout off, the posterior noise and segment starts injected,
+    TF32 off.  Every loss and both gradient norms within ``TRAIN_REF_TOL``
+    relative (f32 summation order through 16 + 16 WN layers, the decoder
+    and six discriminators, in both backward passes).  A control step on
+    the card with the bf16 stages on must miss that limit: it shows the
+    check sees a fault of bf16 rounding's size in the assembled step."""
+    import dataclasses
+
+    from vispeech_tpu_torch.models.discriminator import MultiPeriodDiscriminator
+    from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
+    from vispeech_tpu_torch.text import N_SYMBOLS
+    from vispeech_tpu_torch.train.step import TrainStep
+
+    cfg_bf16 = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, batch_size=2),
+        model=dataclasses.replace(cfg.model, n_layers=2))
+    cfg = dataclasses.replace(cfg_bf16, train=dataclasses.replace(cfg_bf16.train,
+                                                                  fp16_run=False))
+    B, N, T, hop = 2, 40, 200, cfg.data.hop_length
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    dur = torch.randint(3, 7, (B, N), generator=gen)
+    dur[:, -1] = T - dur[:, :-1].sum(1)
+    dur[1, -5:] = 0
+    lengths = dur.sum(1)
+    wav = torch.zeros(B, T * hop, 1, dtype=torch.int16)
+    for b in range(B):
+        n = int(lengths[b]) * hop
+        wav[b, :n, 0] = (torch.randn(n, generator=gen) * 3000).to(torch.int16)
+    batch = dict(phonemes=torch.randint(1, N_SYMBOLS, (B, N), generator=gen),
+                 phoneme_lengths=torch.tensor([N, N - 5]),
+                 f0=100 + 200 * torch.rand(B, N, generator=gen),
+                 energy=30 + 60 * torch.rand(B, N, generator=gen), duration=dur, spec=None,
+                 spec_lengths=lengths, wav=wav, wav_lengths=lengths * hop,
+                 sid=torch.tensor([3, 17]))
+    eps = torch.randn(B, T, cfg.model.inter_channels, generator=gen)
+    ids = torch.tensor([5, 60])
+    g_sd = random_init_(Synthesizer.from_config(cfg, N_SYMBOLS), TRAIN_SEED).state_dict()
+    d_sd = random_init_(MultiPeriodDiscriminator(), TRAIN_SEED + 1).state_dict()
+    out = {}
+    for name, device, c in (("kernels", "cuda", cfg), ("plain", "cpu", cfg),
+                            ("control, bf16 stages", "cuda", cfg_bf16)):
+        g = Synthesizer.from_config(c, N_SYMBOLS)
+        g.load_state_dict(g_sd)
+        dd = MultiPeriodDiscriminator()
+        dd.load_state_dict(d_sd)
+        g, dd = g.to(device).eval(), dd.to(device).eval()
+        step = TrainStep(c, g, dd, steps_per_epoch=10, tf32=False)
+        t0 = time.perf_counter()
+        m = step({k: None if v is None else v.to(device) for k, v in batch.items()},
+                 eps_q=eps.to(device), ids_slice=ids.to(device))
+        out[name] = {k: float(v) for k, v in m.items()}
+        print(f"reference train step ({name}) on {device}: {time.perf_counter() - t0:.2f} s")
+        del g, dd, step
+
+    def worst(name):
+        rels = {k: abs(out[name][k] - want) / max(abs(want), 1e-6)
+                for k, want in out["plain"].items()}
+        for k, rel in rels.items():
+            print(f"    {name} {k}: card {out[name][k]:.6g}, cpu {out['plain'][k]:.6g}, "
+                  f"rel {rel:.2e} {'ok' if rel <= TRAIN_REF_TOL else 'over'}")
+        return max(rels.values())
+
+    sound, control = worst("kernels"), worst("control, bf16 stages")
+    print(f"reference: f32 train step with kernels E and F on the card vs plain on the CPU: "
+          f"{len(out['plain'])} losses and norms, worst relative difference {sound:.2e}; "
+          f"control with the bf16 stages on: {control:.2e} (tol {TRAIN_REF_TOL:.0e}) "
+          f"{'ok' if sound <= TRAIN_REF_TOL < control else 'FAIL'}")
+    if sound > TRAIN_REF_TOL:
+        raise AssertionError(f"f32 train step differs by {sound:.2e} (tol {TRAIN_REF_TOL:.0e})")
+    if control <= TRAIN_REF_TOL:
+        raise AssertionError(f"the bf16 control step is within the limit ({control:.2e}): "
+                             f"the check cannot see a fault of its size")
+
+
 def main() -> int:
     import torch
 
@@ -334,6 +664,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = check_kernels(torch, dev)
+    rows.update(check_train_kernels(torch, dev))
 
     cfg = load_config(os.path.join(ROOT, "configs", "config.json"))
     model = random_init_(Synthesizer.from_config(cfg, N_SYMBOLS), seed=SEED)
@@ -347,7 +678,8 @@ def main() -> int:
 
     engine, counts, expect, requests = serve(torch, dev, cfg, state_dict)
     for label, kw, _ in requests[:2]:
-        profile_request(torch, engine, label, kw)
+        engine.synthesize(**kw)
+        profile(torch, f"'{label}'", lambda: engine.synthesize(**kw), 8)
     del engine
     torch.cuda.empty_cache()
     print(f"launches on the main path: {counts}, expected {expect}")
@@ -355,8 +687,17 @@ def main() -> int:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
     reference_check(torch, dev, cfg, state_dict)
 
+    root = tempfile.mkdtemp(prefix="vispeech_train_")
+    try:
+        train_counts = train_phase(torch, cfg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    train_reference(torch, cfg)
+
+    # serving counts A, B and C; the training run counts E and F
+    counts.update({k: v for k, v in train_counts.items() if "_train_" in k})
     kernels = [dict(name=name, route="cuda",
-                    source=f"vispeech_tpu_torch/csrc/{name}.cu",
+                    source=f"vispeech_tpu_torch/csrc/{name.rsplit('_', 1)[0] if '_train_' in name else name}.cu",
                     replaces=REPLACES[name], launches=counts[name],
                     library_ms=None, **rows[name]) for name in REPLACES]
     print(json.dumps({"kernels": kernels}))

@@ -196,7 +196,7 @@ class TestFlowAndGenerator:
         variables, flat = random_params(jm, x, mask, g=g)
         ours = port(ResidualCouplingLayer(16, 24, 5, 1, 4, gin_channels=8), flat)
         g = g if with_g else None
-        out = ours(t(x), t(mask), g=None if g is None else t(g)).detach().numpy()
+        out = ours(t(x), t(mask), g=None if g is None else t(g), reverse=True).detach().numpy()
         ref = np.asarray(jm.apply(variables, x, mask, g=g, reverse=True))
         assert np.abs(ref - x).max() > 0.1
         np.testing.assert_allclose(out, ref, atol=2e-5)

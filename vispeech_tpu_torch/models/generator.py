@@ -3,9 +3,13 @@
 conv_pre k7 → + speaker cond → 4 × [leaky 0.1 → weight-norm ConvTranspose
 → mean of the 3 MRF branches] → leaky 0.01 → conv_post k7 (no bias) → tanh.
 Runs channel-first inside and in the dtype of its input.  With ResBlock1
-the 64-channel MRF stage goes through kernel C's wrapper
-(``ops/kernels/mrf_stage.py``: the kernel on a CUDA tensor, its plain
-version on a CPU tensor); the other stages run the plain ResBlock1.
+and ``fused`` (serving) the 64-channel MRF stage goes through kernel C's
+wrapper (``ops/kernels/mrf_stage.py``: the kernel on a CUDA tensor, its
+plain version on a CPU tensor); the other stages run the plain ResBlock1.
+Training passes ``fused=False``: kernel C has no backward, and every stage
+runs the plain, differentiable ResBlock1 (the JAX trainer's folded MRF
+computes the same math).  ``tail_f32`` runs the last leaky ReLU, conv_post
+and tanh in f32 whatever the body's dtype.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ class Generator(nn.Module):
                 self.resblocks.append(block(ch, rk, rd))
         self.conv_post = Conv1d(self.channels[-1], 1, 7, padding=3, bias=False)
 
-    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None, fused: bool = True,
+                tail_f32: bool = False) -> torch.Tensor:
         """x [B, T, C_in], g [B, 1, G] → audio [B, T·Π rates, 1]."""
         n = len(self.kernel_sizes)
         x = self.conv_pre.forward_cf(x.transpose(1, 2))
@@ -58,7 +63,7 @@ class Generator(nn.Module):
         for i, (up, ch) in enumerate(zip(self.ups, self.channels)):
             x = up.forward_cf(leaky_relu(x, 0.1))
             blocks = self.resblocks[i * n:(i + 1) * n]
-            if self.fused_mrf and ch == KERNEL_CHANNELS:
+            if fused and self.fused_mrf and ch == KERNEL_CHANNELS:
                 y = mrf_stage.mrf_stack(x.transpose(1, 2), [b.packed() for b in blocks],
                                         self.kernel_sizes, self.dilations)
                 x = y.transpose(1, 2)
@@ -68,5 +73,7 @@ class Generator(nn.Module):
                     y = b.forward_cf(x)
                     acc = y if acc is None else acc + y
                 x = acc / n
+        if tail_f32:
+            x = x.float()
         x = self.conv_post.forward_cf(leaky_relu(x, 0.01))
         return torch.tanh(x).transpose(1, 2)

@@ -1,8 +1,14 @@
-"""The Synthesizer, inference half (``vispeech_tpu/models/synthesizer.py``).
+"""The Synthesizer (``vispeech_tpu/models/synthesizer.py``).
 
-TextEncoder → duration, pitch and energy heads (with the override
-contract) → length regulator → FramePriorNet → Projection → z_p, then the
-4 mean-only couplings in reverse → HiFi-GAN generator → tanh.  Parameter
+Inference: TextEncoder → duration, pitch and energy heads (with the
+override contract) → length regulator → FramePriorNet → Projection → z_p,
+then the 4 mean-only couplings in reverse → HiFi-GAN generator → tanh.
+Training (``forward``): the same text side with teacher-forced duration,
+pitch and energy and their losses, the posterior encoder on the linear
+spectrogram, the couplings forward (z → z_p) and the generator on a random
+segment of z.  ``bf16_stages`` names the stages whose compute runs in
+bf16 (``_stage``: float inputs cast to bf16 at the boundary, float outputs
+back to f32), as the JAX package's ``tail_f32`` scope does.  Parameter
 names follow the reference ``SynthesizerTrn`` state dict.  The public
 methods take and return the JAX package's [B, T, C] layout.
 
@@ -13,8 +19,10 @@ forward and 2590 in the inverse.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from functools import partial
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,14 +36,9 @@ from vispeech_tpu_torch.models.predictors import (
 )
 from vispeech_tpu_torch.ops.attention import Encoder, MultiHeadAttention
 from vispeech_tpu_torch.ops.flows import Flip, ResidualCouplingLayer
-from vispeech_tpu_torch.ops.layers import (
-    Conv1d,
-    LayerNorm,
-    WNConv1d,
-    WNConvTranspose1d,
-)
+from vispeech_tpu_torch.ops.layers import Conv1d, LayerNorm
 from vispeech_tpu_torch.ops.length_regulator import length_regulate
-from vispeech_tpu_torch.ops.masking import length_mask
+from vispeech_tpu_torch.ops.masking import length_mask, rand_slice_segments
 from vispeech_tpu_torch.ops.policy import FLOAT32, ServingPolicy
 from vispeech_tpu_torch.ops.wavenet import WN
 
@@ -68,24 +71,23 @@ class TextEncoder(nn.Module):
     """Phoneme embedding × √h → relative-attention encoder."""
 
     def __init__(self, n_vocab, hidden_channels, filter_channels, n_heads, n_layers,
-                 kernel_size):
+                 kernel_size, p_dropout: float = 0.0):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.symbol_emb = nn.Embedding(n_vocab, hidden_channels, _weight=torch.empty(
             n_vocab, hidden_channels))
         self.encoder = Encoder(hidden_channels, filter_channels, n_heads, n_layers,
-                               kernel_size)
+                               kernel_size, p_dropout=p_dropout)
 
-    def forward(self, phonemes, lengths):
+    def forward(self, phonemes, lengths, generator=None):
         x = self.symbol_emb(phonemes) * math.sqrt(self.hidden_channels)
         x_mask = length_mask(lengths, phonemes.shape[1], x.dtype)
-        return self.encoder(x * x_mask, x_mask), x_mask
+        return self.encoder(x * x_mask, x_mask, generator), x_mask
 
 
 class PosteriorEncoder(nn.Module):
-    """Linear spectrogram → posterior latent (16-layer WN).  Only its
-    parameters are here, so that checkpoints load whole: voice conversion,
-    which runs it, is a later slice of the port."""
+    """Linear spectrogram → posterior latent z = (m + eps·e^logs)·mask
+    through a 16-layer WN."""
 
     def __init__(self, in_channels, out_channels, hidden_channels, kernel_size=5,
                  dilation_rate=1, n_layers=16, gin_channels=0):
@@ -94,11 +96,24 @@ class PosteriorEncoder(nn.Module):
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
                       gin_channels=gin_channels)
         self.proj = Conv1d(hidden_channels, 2 * out_channels, 1)
+        self.out_channels = out_channels
+
+    def forward(self, spec, lengths, g=None, eps=None, generator=None):
+        """spec [B, T, bins], lengths [B] → (z, m, logs, mask).  ``eps``
+        [B, T, out] injects the noise; None draws it from ``generator``."""
+        x_mask = length_mask(lengths, spec.shape[1], spec.dtype)
+        x = self.enc(self.pre(spec) * x_mask, x_mask, g=g)
+        stats = self.proj(x) * x_mask
+        m, logs = stats[..., :self.out_channels], stats[..., self.out_channels:]
+        if eps is None:
+            eps = torch.randn(m.shape, generator=generator, device=m.device)
+        z = (m + eps.to(m.dtype) * torch.exp(logs)) * x_mask
+        return z, m, logs, x_mask
 
 
 class ResidualCouplingBlock(nn.Module):
     """4 × (mean-only coupling, flip); reference names ``flows.{0,2,4,6}``.
-    Inference runs it in reverse only."""
+    Forward maps the posterior z to z_p (training); reverse undoes it."""
 
     def __init__(self, channels, hidden_channels, kernel_size=5, dilation_rate=1,
                  n_layers=4, n_flows=4, gin_channels=0):
@@ -110,20 +125,21 @@ class ResidualCouplingBlock(nn.Module):
                 gin_channels=gin_channels))
             self.flows.append(Flip())
 
-    def forward(self, x, x_mask, g=None):
-        for flow in reversed(self.flows):
-            x = flow(x, x_mask, g=g)
+    def forward(self, x, x_mask, g=None, reverse: bool = False):
+        for flow in (reversed(self.flows) if reverse else self.flows):
+            x = flow(x, x_mask, g=g, reverse=reverse)
         return x
 
 
 class FramePriorNet(nn.Module):
-    def __init__(self, hidden_channels, filter_channels, n_heads, n_layers, kernel_size):
+    def __init__(self, hidden_channels, filter_channels, n_heads, n_layers, kernel_size,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.fft_block = Encoder(hidden_channels, filter_channels, n_heads, n_layers,
-                                 kernel_size)
+                                 kernel_size, p_dropout=p_dropout)
 
-    def forward(self, x_frame, x_mask):
-        return self.fft_block(x_frame * x_mask, x_mask)
+    def forward(self, x_frame, x_mask, generator=None):
+        return self.fft_block(x_frame * x_mask, x_mask, generator)
 
 
 class Projection(nn.Module):
@@ -137,8 +153,34 @@ class Projection(nn.Module):
         return stats[..., :self.out_channels], stats[..., self.out_channels:]
 
 
+def _inference(method):
+    """Run an inference method under no_grad and in eval mode (no dropout,
+    whatever mode the model is in), as the JAX package's deterministic
+    inference; the mode is restored after."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kw):
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                return method(self, *args, **kw)
+        finally:
+            self.train(was_training)
+    return wrapper
+
+
+def _cast_floats(tree, dtype):
+    """Every floating tensor of a (nested) tuple cast to ``dtype``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, tuple):
+        return tuple(_cast_floats(t, dtype) for t in tree)
+    return tree
+
+
 class Synthesizer(nn.Module):
-    """Inference network; ``policy`` fixes the decode dtype."""
+    """The generator network; ``policy`` fixes the serving decode dtype,
+    ``bf16_stages`` the training stages that compute in bf16."""
 
     def __init__(self, n_vocab: int, spec_channels: int, inter_channels: int = 192,
                  hidden_channels: int = 192, filter_channels: int = 768, n_heads: int = 2,
@@ -148,15 +190,18 @@ class Synthesizer(nn.Module):
                  upsample_rates=(8, 8, 4, 2), upsample_initial_channel: int = 512,
                  upsample_kernel_sizes=(16, 16, 4, 4), n_speakers: int = 0,
                  gin_channels: int = 0, use_sdp: bool = False,
-                 policy: ServingPolicy = FLOAT32):
+                 policy: ServingPolicy = FLOAT32, p_dropout: float = 0.1,
+                 segment_size: int = 32, bf16_stages: Tuple[str, ...] = ()):
         super().__init__()
         if use_sdp:
             raise NotImplementedError(
                 "the stochastic duration predictor is not ported yet (use_sdp=false)")
         self.policy = policy
         self.n_speakers = n_speakers
+        self.segment_size = segment_size   # frames
+        self.bf16_stages = tuple(bf16_stages)
         h, f = hidden_channels, filter_channels
-        self.enc_p = TextEncoder(n_vocab, h, f, n_heads, n_layers, kernel_size)
+        self.enc_p = TextEncoder(n_vocab, h, f, n_heads, n_layers, kernel_size, p_dropout)
         self.dec = Generator(inter_channels, resblock, resblock_kernel_sizes,
                              resblock_dilation_sizes, upsample_rates,
                              upsample_initial_channel, upsample_kernel_sizes,
@@ -166,9 +211,9 @@ class Synthesizer(nn.Module):
         self.flow = ResidualCouplingBlock(inter_channels, h, 5, 1, 4,
                                           gin_channels=gin_channels)
         self.duration_predictor = DurationPredictor(h, 256, 3, gin_channels=gin_channels)
-        self.frame_prior_net = FramePriorNet(h, f, n_heads, n_layers, kernel_size)
+        self.frame_prior_net = FramePriorNet(h, f, n_heads, n_layers, kernel_size, p_dropout)
         self.pitch_predictor = PitchPredictor(h, f, n_heads, kernel_size,
-                                              gin_channels=gin_channels)
+                                              gin_channels=gin_channels, p_dropout=p_dropout)
         self.energy_predictor = EnergyPredictor(h, gin_channels=gin_channels)
         self.project = Projection(h, inter_channels)
         self.pitch_prenet = Conv1d(1, h, 3, padding=1)
@@ -192,14 +237,75 @@ class Synthesizer(nn.Module):
             upsample_initial_channel=m.upsample_initial_channel,
             upsample_kernel_sizes=m.upsample_kernel_sizes,
             n_speakers=cfg.data.n_speakers, gin_channels=m.gin_channels,
-            use_sdp=m.use_sdp, policy=policy)
+            use_sdp=m.use_sdp, policy=policy, p_dropout=m.p_dropout,
+            segment_size=cfg.train.segment_size // cfg.data.hop_length)
 
     def _speaker(self, sid):
         if self.n_speakers > 1 and sid is not None:
             return self.emb_g(sid)[:, None, :]
         return None
 
-    @torch.no_grad()
+    def _stage(self, name: str, fn, *args, **kw):
+        """Run ``fn`` with its float tensor arguments in bf16 and its float
+        outputs back in f32 when ``name`` is in ``bf16_stages``."""
+        if name not in self.bf16_stages:
+            return fn(*args, **kw)
+        out = fn(*_cast_floats(args, torch.bfloat16),
+                 **{k: _cast_floats(v, torch.bfloat16) for k, v in kw.items()})
+        return _cast_floats(out, torch.float32)
+
+    def forward(self, phonemes, phoneme_lengths, f0, energy, duration, spec, spec_lengths,
+                sid=None, generator=None, seed_generator=None, eps_q=None, ids_slice=None):
+        """Training forward (``vispeech_tpu/models/synthesizer.py:391-468``).
+
+        phonemes, f0 [Hz], energy, duration [frames]: [B, N]; spec [B, T,
+        bins]; lengths [B].  ``generator`` (on the model's device) draws the
+        posterior noise and the segment starts, ``seed_generator`` (CPU) the
+        attention dropout seeds; ``eps_q`` [B, T, inter] and ``ids_slice``
+        [B] inject them instead.  → (audio segment [B, S·hop, 1], l_length,
+        l_pitch, l_energy, ids_slice, frame_mask, y_mask, (z, z_p, m_p,
+        logs_p, m_q, logs_q), pred_f0, pred_norm_energy, norm_energy)."""
+        g = self._speaker(sid)
+        x, x_mask = self._stage("enc_p", self.enc_p, phonemes, phoneme_lengths,
+                                generator=seed_generator)
+
+        logw_ = torch.log(duration.float() + 1.0)[..., None] * x_mask
+        logw = self._stage("heads", self.duration_predictor, x, x_mask, g=g)
+        l_length = torch.sum((logw - logw_) ** 2) / torch.sum(x_mask)
+
+        lf0 = f0_to_lf0(f0)
+        pred_lf0 = self._stage("heads", self.pitch_predictor, x, x_mask, g=g,
+                               generator=seed_generator)
+        l_pitch = torch.mean((lf0 - pred_lf0) ** 2)
+        x = x + self._stage("heads", self.pitch_prenet, lf0[..., None])
+        pred_f0 = lf0_to_f0(pred_lf0)
+
+        norm_energy = normalize_energy(energy)
+        pred_norm_energy = self._stage("heads", self.energy_predictor, x, g=g)
+        l_energy = torch.mean((norm_energy - pred_norm_energy) ** 2)
+        x = x + self._stage("heads", self.energy_prenet, norm_energy[..., None])
+
+        t_frames = spec.shape[1]
+        x_frame, frame_lengths = length_regulate(x, duration, t_frames)
+        frame_mask = length_mask(frame_lengths, t_frames, x.dtype)
+        x_frame = self._stage("fpn", self.frame_prior_net, x_frame, frame_mask,
+                              generator=seed_generator)
+        m_p, logs_p = self._stage("project", self.project, x_frame, frame_mask)
+
+        z, m_q, logs_q, y_mask = self._stage("enc_q", self.enc_q, spec, spec_lengths, g=g,
+                                             eps=eps_q, generator=generator)
+        z_p = self._stage("flow", self.flow, z, y_mask, g=g)
+
+        z_slice, ids_slice = rand_slice_segments(z, spec_lengths, self.segment_size,
+                                                 generator, ids=ids_slice)
+        # kernel C has no backward: training decodes every stage with the
+        # plain ResBlock1, as the JAX trainer's folded_narrow path computes
+        o = self._stage("dec_body", partial(self.dec, fused=False, tail_f32=True),
+                        z_slice, g=g)
+        return (o, l_length, l_pitch, l_energy, ids_slice, frame_mask, y_mask,
+                (z, z_p, m_p, logs_p, m_q, logs_q), pred_f0, pred_norm_energy, norm_energy)
+
+    @_inference
     def infer(self, phonemes, phoneme_lengths, t_frames: int, sid=None,
               noise_scale: float = 1.0, max_len: Optional[int] = None,
               energy_control=None, pitch_control=None, duration_control=None,
@@ -213,7 +319,7 @@ class Synthesizer(nn.Module):
         o, z, frame_mask = self.infer_decode(z_p, frame_mask, sid=sid, max_len=max_len)
         return o, frame_mask, (z, z_p, m_p, logs_p), duration, f0, energy
 
-    @torch.no_grad()
+    @_inference
     def infer_prior(self, phonemes, phoneme_lengths, t_frames: int, sid=None,
                     noise_scale: float = 1.0, energy_control=None, pitch_control=None,
                     duration_control=None, eps: Optional[torch.Tensor] = None,
@@ -258,19 +364,19 @@ class Synthesizer(nn.Module):
         z_p = m_p + eps * torch.exp(logs_p) * noise_scale
         return z_p, frame_mask, duration, f0, energy, (m_p, logs_p)
 
-    @torch.no_grad()
+    @_inference
     def infer_decode(self, z_p, frame_mask, sid=None, max_len: Optional[int] = None):
         """Flow reverse → vocoder in the policy's decode dtype.
         → (audio [B, T·hop, 1] f32, z, frame_mask)."""
         g = self._speaker(sid)
-        z = self.flow(z_p, frame_mask, g=g) * frame_mask
+        z = self.flow(z_p, frame_mask, g=g, reverse=True) * frame_mask
         if max_len is not None:
             z, frame_mask = z[:, :max_len], frame_mask[:, :max_len]
         dtype = self.policy.torch_decode_dtype
         o = self.dec(z.to(dtype), g=None if g is None else g.to(dtype))
         return o.float(), z, frame_mask
 
-    @torch.no_grad()
+    @_inference
     def predict_durations(self, phonemes, phoneme_lengths, sid=None):
         """Duration-only pass → frame counts [B, N] (≥ 0)."""
         g = self._speaker(sid)
@@ -285,7 +391,8 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from ``torch.Generator(seed)`` on the CPU, so the
     same seed gives the same weights on any device: convs and linears
     U(±1/√fan_in) (the decoder's weight-normed convs N(0, 0.01)), weight-norm
-    gains = ‖v‖, embeddings and relative tables normal, norms 1 / 0."""
+    gains = ‖v‖, embeddings and relative tables normal, norms 1 / 0.  Works
+    for the discriminators as well."""
     gen = torch.Generator().manual_seed(seed)
 
     def fill(p, values):
@@ -296,13 +403,14 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
         return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
 
     for name, mod in model.named_modules():
-        if isinstance(mod, (WNConv1d, WNConvTranspose1d)):
+        if isinstance(getattr(mod, "weight_v", None), torch.Tensor):   # any weight norm
             v = mod.weight_v
             if name.startswith("dec."):
                 fill(v, torch.randn(v.shape, generator=gen) * 0.01)
             else:
                 fill(v, uniform(v.shape, v[0].numel()))
-            fill(mod.weight_g, v.float().pow(2).sum(dim=(1, 2), keepdim=True).sqrt())
+            dims = tuple(range(1, v.dim()))
+            fill(mod.weight_g, v.float().pow(2).sum(dim=dims, keepdim=True).sqrt())
             fill(mod.bias, uniform(mod.bias.shape, v[0].numel()))
         elif isinstance(mod, (Conv1d, nn.Linear)):
             fan_in = mod.weight[0].numel()

@@ -19,7 +19,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("rel_attention", "wn_stack", "mrf_stage")
+SOURCES = ("rel_attention", "wn_stack", "mrf_stage", "wn_stack_train", "rel_attention_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

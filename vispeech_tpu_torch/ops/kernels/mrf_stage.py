@@ -17,7 +17,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from vispeech_tpu_torch.ops.kernels import _build
+from vispeech_tpu_torch.ops.kernels import _build, refuse_autograd
 
 launches = 0
 
@@ -53,6 +53,8 @@ def mrf_stack(x, packed: Sequence[BranchWeights], kernel_sizes, dilations):
     if x.device.type == "cpu":
         return mrf_stack_plain(x, packed, kernel_sizes, dilations)
     global launches
+    refuse_autograd("mrf_stage", "the plain ResBlock1 stages (Generator(fused=False))",
+                    x, *[t for branch in packed for t in branch])
     B, T, C = x.shape
     n_br, n_unit = len(kernel_sizes), len(dilations[0])
     if C != 64 or x.dtype not in (torch.float32, torch.bfloat16):

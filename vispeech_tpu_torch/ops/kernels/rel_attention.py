@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from vispeech_tpu_torch.ops.kernels import _build
+from vispeech_tpu_torch.ops.kernels import _build, refuse_autograd
 
 NEG_FILL = -1e4
 launches = 0
@@ -58,6 +58,8 @@ def relative_self_attention(q, k, v, rel_k, rel_v, key_mask, window: int = 4):
     if q.device.type == "cpu":
         return relative_self_attention_plain(q, k, v, rel_k, rel_v, key_mask, window)
     global launches
+    refuse_autograd("rel_attention", "rel_attention_train.relative_self_attention_train",
+                    q, k, v, rel_k, rel_v)
     B, H, T, d = q.shape
     n_rel = rel_k.shape[0]
     if d not in (64, 96) or window > 4 or n_rel not in (1, H):

@@ -16,7 +16,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from vispeech_tpu_torch.ops.kernels import _build
+from vispeech_tpu_torch.ops.kernels import _build, refuse_autograd
 
 launches = 0
 
@@ -50,6 +50,7 @@ def wn_stack(x, mask, cond, w_in, w_rs, b_rs, kernel_size: int):
     if x.device.type == "cpu":
         return wn_stack_plain(x, mask, cond, w_in, w_rs, b_rs, kernel_size)
     global launches
+    refuse_autograd("wn_stack", "wn_stack_train.wn_stack_train", x, cond, w_in, w_rs, b_rs)
     B, T, C = x.shape
     L = w_in.shape[0]
     expect = {"mask": (B, T, 1), "cond": (B, L, 2 * C),

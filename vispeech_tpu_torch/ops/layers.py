@@ -34,12 +34,12 @@ def _pads(kernel_size: int, dilation: int, padding: Padding) -> Tuple[int, int]:
     return tuple(padding)
 
 
-def _conv_cf(x, weight, bias, pads, dilation):
+def _conv_cf(x, weight, bias, pads, dilation, stride=1, groups=1):
     weight = weight.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     if pads[0] == pads[1]:
-        return F.conv1d(x, weight, bias, padding=pads[0], dilation=dilation)
-    return F.conv1d(F.pad(x, pads), weight, bias, dilation=dilation)
+        return F.conv1d(x, weight, bias, stride, pads[0], dilation, groups)
+    return F.conv1d(F.pad(x, pads), weight, bias, stride, 0, dilation, groups)
 
 
 def _weight_norm(v: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
@@ -52,6 +52,9 @@ class Conv1d(nn.Module):
     """1-D convolution; padding None = symmetric (k·d − d)//2, or an int, or
     (left, right)."""
 
+    stride = 1
+    groups = 1
+
     def __init__(self, cin: int, cout: int, kernel_size: int = 1, dilation: int = 1,
                  padding: Padding = None, bias: bool = True):
         super().__init__()
@@ -61,10 +64,11 @@ class Conv1d(nn.Module):
         self.pads = _pads(kernel_size, dilation, padding)
 
     def forward_cf(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_cf(x, self.weight, self.bias, self.pads, self.dilation)
+        return _conv_cf(x, self.weight, self.bias, self.pads, self.dilation, self.stride,
+                        self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.weight.shape[-1] == 1:
+        if self.weight.shape[-1] == 1 and self.stride == 1 and self.groups == 1:
             bias = None if self.bias is None else self.bias.to(x.dtype)
             return F.linear(x, self.weight[:, :, 0].to(x.dtype), bias)
         return self.forward_cf(x.transpose(1, 2)).transpose(1, 2)
@@ -96,16 +100,18 @@ def freeze_weight_norm(model: nn.Module) -> nn.Module:
 
 class WNConv1d(_WeightNormed, Conv1d):
     """Weight-normalised Conv1d: ``weight_g`` [cout, 1, 1], ``weight_v``
-    [cout, cin, k], norm per output channel."""
+    [cout, cin/groups, k], norm per output channel."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1, dilation: int = 1,
-                 padding: Padding = None, bias: bool = True):
+                 padding: Padding = None, bias: bool = True, stride: int = 1,
+                 groups: int = 1):
         nn.Module.__init__(self)
         self.weight_g = _empty(cout, 1, 1)
-        self.weight_v = _empty(cout, cin, kernel_size)
+        self.weight_v = _empty(cout, cin // groups, kernel_size)
         self.bias = _empty(cout) if bias else None
         self.dilation = dilation
         self.pads = _pads(kernel_size, dilation, padding)
+        self.stride, self.groups = stride, groups
 
 
 class WNConvTranspose1d(_WeightNormed, nn.Module):

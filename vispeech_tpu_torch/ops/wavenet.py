@@ -5,9 +5,10 @@ L layers of [weight-norm k-tap conv C → 2C, + speaker cond, tanh·sigmoid
 gate (``fused_gate``, beside kernel B's plain version), 1×1 res/skip]; the
 mask applies to x after every residual update and to the skip sum at the
 end.  The layers' weights are packed as the JAX package's ``_fused`` packs
-them and the whole stack runs through kernel B's wrapper
-(``ops/kernels/wn_stack.py``): the kernel on a CUDA tensor, its plain
-version on a CPU tensor.
+them.  When autograd needs gradients the whole stack runs through kernel
+E's wrapper (``ops/kernels/wn_stack_train.py``, forward and backward),
+otherwise through kernel B's (``ops/kernels/wn_stack.py``): each the kernel
+on a CUDA tensor, its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from vispeech_tpu_torch.ops.kernels import wn_stack
+from vispeech_tpu_torch.ops.kernels import wn_stack, wn_stack_train
 from vispeech_tpu_torch.ops.layers import WNConv1d
 
 
@@ -40,7 +41,10 @@ class WN(nn.Module):
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, T, C], x_mask [B, T, 1], g [B, 1, G] → [B, T, C]."""
-        return wn_stack.wn_stack(x, x_mask, *self.packed(x.shape[0], g), self.kernel_size)
+        packed = self.packed(x.shape[0], g)
+        if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in packed)):
+            return wn_stack_train.wn_stack_train(x, x_mask, *packed, self.kernel_size)
+        return wn_stack.wn_stack(x, x_mask, *packed, self.kernel_size)
 
     def packed(self, batch: int, g: Optional[torch.Tensor]):
         """Kernel B's operands: (cond [B, L, 2C] = input bias + speaker,
