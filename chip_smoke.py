@@ -4,13 +4,16 @@ and check them.
 
     python3 chip_smoke.py
 
-1. Builds kernels A, B, C (serving) and E, F (training) from
+1. Builds kernels A, B, C, D (serving) and E, F (training) from
    ``vispeech_tpu_torch/csrc`` (one nvcc per source, all at once) and
    prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (TF32 off) and times both: A at T = 1400 and 512,
-   B at T = 1400 with L = 4 and a speaker, C at a 1400-frame bucket
-   (358 400 samples) in bf16 and f32.
+   B at T = 1400 with L = 4 and a speaker, and in its per-layer mode at
+   L = 16 (the posterior encoder), C at a 1400-frame bucket (358 400
+   samples) in bf16 and f32, D at the same bucket's C = 32 stage (716 800
+   samples, fold 4) in bf16 and f32, timed beside the cuDNN ResBlock1
+   stage it replaces (unfolded, bf16).
 2b. E and F, forward and backward with every gradient, at the training
    shapes (B = 12, T = 1024): E with L = 16 and a speaker (enc_q) and
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
@@ -24,6 +27,12 @@ and check them.
    kernels in f32 against the plain f32 path on the CPU.  Two of
    the requests run again under torch.profiler: device time by kernel and
    the device's busy share of the wall time.
+3d. Voice conversion of the long request's audio (1400 frames) through
+   ``TTSEngine.voice_conversion``: launch counts (B 16 per-layer launches
+   for the posterior encoder + 4 + 4 couplings, C 1, D 1), finite audio
+   of frames × hop samples, a profile, and the f32 conversion with the
+   kernels on the card against the plain f32 conversion on the CPU with
+   the posterior noise injected.
 4. Writes a synthetic corpus (44.1 kHz, 24 utterances of 512-1024 frames)
    to a temporary directory and trains at the full width of
    ``configs/config.json`` (batch 12, bf16 ``tail_f32``): a warm-up step
@@ -62,6 +71,7 @@ REPLACES = {
     "rel_attention": "vispeech_tpu/ops/pallas/flash_attention.py:103",
     "wn_stack": "vispeech_tpu/ops/pallas/wn_stack.py:105",
     "mrf_stage": "vispeech_tpu/ops/pallas/mrf_stage.py:197",
+    "mrf_stage_folded": "vispeech_tpu/ops/pallas/mrf_stage.py:342",
     "wn_stack_train_fwd": "vispeech_tpu/ops/pallas/wn_stack_train.py:203",
     "wn_stack_train_bwd": "vispeech_tpu/ops/pallas/wn_stack_train.py:285",
     "rel_attention_train_fwd": "vispeech_tpu/ops/pallas/flash_attention_train.py:290",
@@ -152,6 +162,30 @@ def check_kernels(torch, dev):
     rows["wn_stack"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=b_by)
 
+    # the posterior encoder: L = 16 takes B's per-layer mode, one launch a layer
+    L = 16
+    w_rs = rn(L, C, 2 * C, scale=0.05)
+    w_rs[-1, :, C:] = 0.0
+    args = (x, m, rn(B, L, 2 * C, scale=0.1), rn(L, K, C, 2 * C, scale=0.03), w_rs,
+            rn(L, 1, 2 * C, scale=0.1))
+    before = wn_stack.launches
+    out = wn_stack.wn_stack(*args, K)
+    n_launch = wn_stack.launches - before
+    ref = wn_stack.wn_stack_plain(*args, K)
+    err = (out - ref).abs().max().item()
+    peak = ref.abs().max().item()
+    tol = 1e-4 * max(peak, 1.0)
+    ms = time_ms(lambda: wn_stack.wn_stack(*args, K), 20)
+    plain = time_ms(lambda: wn_stack.wn_stack_plain(*args, K), 20)
+    flops = 2.0 * B * L * T * (K * C * 2 * C + C * 2 * C)
+    b_ms, b_by = bound(nbytes(*args, out), flops, "float32")
+    ok = err <= tol and n_launch == L
+    print(f"kernel B wn_stack per-layer mode T={T} L={L}: {n_launch} launches, {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP), "
+          f"max_abs_err {err:.3e} (peak {peak:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel B's per-layer mode disagrees or launched {n_launch}: {err}")
+
     ks, dils, C = (3, 7, 11), ((1, 3, 5),) * 3, 64
     T = 1400 * 512 // 2  # the C = 64 stage runs at hop / 2 samples per frame
     packed = [(rn(3, kk, C, C, scale=0.03), rn(3, 1, C, scale=0.1),
@@ -180,7 +214,86 @@ def check_kernels(torch, dev):
         if dtype == torch.bfloat16:
             rows["mrf_stage"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                      bound_ms=b_ms, bound_by=b_by)
+    rows["mrf_stage_folded"] = check_folded(torch, dev, rn, nbytes)
     return rows
+
+
+def check_folded(torch, dev, rn, nbytes, frames=1400):
+    """Kernel D at the C = 32 stage of a 1400-frame bucket (716 800 samples,
+    fold 4) against its plain version in bf16 and f32, timed beside the
+    stage D replaced: three cuDNN ResBlock1 branches, unfolded, bf16."""
+    from vispeech_tpu_torch.ops.folded_mrf import folded_units
+    from vispeech_tpu_torch.ops.kernels import mrf_stage_folded as D
+    from vispeech_tpu_torch.ops.resblock import ResBlock1
+
+    ks, dils, C, fold = (3, 7, 11), ((1, 3, 5),) * 3, 32, 4
+    T = frames * 512
+    packed = [(rn(3, kk, C, C, scale=0.05), rn(3, 1, C, scale=0.1),
+               rn(3, kk, C, C, scale=0.05), rn(3, 1, C, scale=0.1)) for kk in ks]
+    blocks = []
+    for (w1, b1, w2, b2), kk, d in zip(packed, ks, dils):
+        block = ResBlock1(C, kk, d).to(dev)
+        for u in range(len(d)):
+            for conv, w, b in ((block.convs1[u], w1, b1), (block.convs2[u], w2, b2)):
+                conv.folded = w[u].permute(2, 1, 0).contiguous()
+                conv.bias.data.copy_(b[u, 0])
+        blocks.append(block)
+
+    def cudnn_stage(x_cf):
+        with torch.no_grad():
+            return sum(block.forward_cf(x_cf) for block in blocks) / len(blocks)
+
+    # the function's own work (unfolded), and the folded convs D computes
+    flops = 2.0 * T * C * C * 2 * sum(kk * len(d) for kk, d in zip(ks, dils))
+    taps = sum(wf.shape[0] for units in folded_units(packed, dils, fold)
+               for unit in units for wf, _, _ in unit)
+    folded_flops = 2.0 * (T // fold) * (fold * C) ** 2 * taps
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x = rn(1, T, C, dtype=dtype)
+        prepared = D.prepare_weights(packed, ks, dils, fold, C, dtype)
+        out = D.mrf_stack_folded(x, None, ks, dils, fold, prepared)
+        if not torch.equal(out, D.mrf_stack_folded(x, packed, ks, dils, fold)):
+            raise AssertionError("kernel D differs with weights prepared ahead and at the call")
+        ref = D.mrf_stack_folded_plain(x, packed, ks, dils, fold)
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        # f32: summation order over up to 15 · 128 terms; bf16: one ulp at the peak
+        tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * peak
+        ok = err <= tol
+        w_bytes = sum(nbytes(w1, w2) * x.element_size() // 4 + nbytes(b1, b2)
+                      for w1, b1, w2, b2 in packed)
+        b_ms, b_by = bound(nbytes(x, out) + w_bytes, flops, name)
+        fb_ms, _ = bound(nbytes(x, out) + w_bytes, folded_flops, name)
+        print(f"kernel D mrf_stage_folded T={T} C={C} fold={fold} {name}: max_abs_err "
+              f"{err:.3e} (peak {peak:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}; bound "
+              f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP of the stage), "
+              f"{fb_ms:.4f} ms for the {folded_flops / 1e9:.1f} GFLOP of {taps} folded taps")
+        if not ok:
+            raise AssertionError(f"kernel D disagrees in {name}: {err} > {tol}")
+        if dtype != torch.bfloat16:
+            ms = time_ms(lambda: D.mrf_stack_folded(x, None, ks, dils, fold, prepared), 3)
+            plain = time_ms(lambda: D.mrf_stack_folded_plain(x, packed, ks, dils, fold), 2)
+            print(f"  f32 times: D {ms:.4f} ms, plain folded {plain:.4f} ms")
+            continue
+        x_cf = x.transpose(1, 2).contiguous()
+        stage = cudnn_stage(x_cf)
+        diff = (stage.transpose(1, 2).float() - ref.float()).abs().max().item()
+        # the A/B that decides the C < 64 dispatch, in turns: D, plain, cuDNN, D.
+        # D as serving calls it (weights prepared once) and folding them at the call
+        ms = time_ms(lambda: D.mrf_stack_folded(x, None, ks, dils, fold, prepared), 5)
+        plain = time_ms(lambda: D.mrf_stack_folded_plain(x, packed, ks, dils, fold), 3)
+        unfolded = time_ms(lambda: cudnn_stage(x_cf), 5)
+        ms2 = time_ms(lambda: D.mrf_stack_folded(x, None, ks, dils, fold, prepared), 5)
+        at_call = time_ms(lambda: D.mrf_stack_folded(x, packed, ks, dils, fold), 5)
+        print(f"  bf16 times: D {ms:.4f} / {ms2:.4f} ms ({at_call:.4f} ms folding the weights "
+              f"at the call), plain folded {plain:.4f} ms, cuDNN ResBlock1 stage (unfolded) "
+              f"{unfolded:.4f} ms; the cuDNN stage differs from D's plain version by "
+              f"{diff:.3e} (bf16 rounding at other places)")
+        row = dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by)
+    return row
 
 
 def _held(name, outs, refs, bf16):
@@ -353,7 +466,8 @@ def serve(torch, dev, cfg, state_dict):
     # serving runs under no_grad: the training kernels E and F never launch
     expect = {k: 0 for k in counts}
     expect.update({"rel_attention": sum(n_a for _, _, n_a in requests),
-                   "wn_stack": 4 * len(requests), "mrf_stage": len(requests)})
+                   "wn_stack": 4 * len(requests), "mrf_stage": len(requests),
+                   "mrf_stage_folded": len(requests)})
     n_list = [len(o["phones"]) for o in batch]
     totals = [max(int(o["duration"].sum()), 1) for o in batch]
     n_plans = len(plan_batches(totals))
@@ -361,6 +475,7 @@ def serve(torch, dev, cfg, state_dict):
     expect["rel_attention"] += n_attn * n_pads + (n_attn + n_pitch + n_attn) * n_plans
     expect["wn_stack"] += 4 * n_plans
     expect["mrf_stage"] += n_plans
+    expect["mrf_stage_folded"] += n_plans
 
     for label, out in results + [(f"batch row {i}", o) for i, o in enumerate(batch)]:
         frames = int(out["duration"].sum())
@@ -437,6 +552,64 @@ def reference_check(torch, dev, cfg, state_dict):
           f"peak {peak:.3e} (tol 1e-3 of peak) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"f32 kernel path disagrees with the plain path: {err}")
+
+
+def voice_conversion_phase(torch, dev, cfg, state_dict, engine, wav):
+    """Phase 3d: one VC request at full width on ``wav`` (the long request's
+    1400 frames), through ``TTSEngine.voice_conversion``: the launch counts
+    of its run, the audio, a profile, and the f32 conversion on the card
+    against the plain f32 conversion on the CPU, posterior noise injected.
+    → the launch counts."""
+    import numpy as np
+
+    from vispeech_tpu_torch.infer.batching import pick_bucket
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.ops.policy import FLOAT32
+
+    hop, sr = cfg.data.hop_length, cfg.data.sampling_rate
+    engine.voice_conversion(wav, 7, 99)        # meets the shapes once
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.voice_conversion(wav, 7, 99)
+    latency = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    frames = len(wav) // hop
+    n = len(out["audio"])
+    if n != frames * hop or not np.isfinite(out["audio"]).all():
+        raise AssertionError(f"voice conversion: {n} samples for {frames} frames, finite "
+                             f"{bool(np.isfinite(out['audio']).all())}")
+    # the posterior encoder (L = 16) in B's per-layer mode, 4 couplings
+    # forward and 4 in reverse; the decoder's C = 64 and C = 32 stages
+    expect = {k: 0 for k in counts}
+    expect.update(wn_stack=16 + 4 + 4, mrf_stage=1, mrf_stage_folded=1)
+    print(f"voice conversion: {frames} frames, {n / sr:.3f} s audio, latency "
+          f"{latency * 1e3:.2f} ms, {n / sr / latency:.2f} audio-s/s; launches {counts}, "
+          f"expected {expect}")
+    if counts != expect:
+        raise AssertionError(f"voice conversion launch counts {counts} != {expect}")
+    profile(torch, f"voice conversion ({frames} frames)",
+            lambda: engine.voice_conversion(wav, 7, 99), 10)
+
+    eps = torch.randn(1, pick_bucket(frames), cfg.model.inter_channels,
+                      generator=torch.Generator().manual_seed(SEED)).numpy()
+    outs = {}
+    for name, device in (("kernels", dev.type), ("plain", "cpu")):
+        f32 = TTSEngine(cfg, state_dict, device=device, policy=FLOAT32, transfer_int16=False)
+        t0 = time.perf_counter()
+        outs[name] = f32.voice_conversion(wav, 7, 99, eps=eps)["audio"]
+        print(f"  f32 voice conversion ({name}) on {device}: {time.perf_counter() - t0:.2f} s")
+        del f32
+    err = float(abs(outs["kernels"] - outs["plain"]).max())
+    peak = float(abs(outs["plain"]).max())
+    ok = err <= 1e-3 * max(peak, 1e-3)
+    print(f"reference: f32 voice conversion with kernels on the card vs plain f32 on the CPU: "
+          f"{len(outs['plain'])} samples, max_abs_err {err:.3e}, peak {peak:.3e} "
+          f"(tol 1e-3 of peak) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"f32 voice conversion on the card disagrees with the CPU: {err}")
+    return counts
 
 
 TRAIN_SEED = 4321
@@ -517,7 +690,7 @@ def train_phase(torch, cfg, root):
     per_step = {"wn_stack_train_fwd": 5, "wn_stack_train_bwd": 5,
                 "rel_attention_train_fwd": 14, "rel_attention_train_bwd": 14}
     expect = {k: 5 * v for k, v in per_step.items()}
-    expect.update(rel_attention=0, wn_stack=0, mrf_stage=0)
+    expect.update(rel_attention=0, wn_stack=0, mrf_stage=0, mrf_stage_folded=0)
     print(f"train launches over 5 steps: {counts}, expected {expect}")
     if counts != expect:
         raise AssertionError(f"training launch counts {counts} != {expect}")
@@ -677,15 +850,17 @@ def main() -> int:
     del model
 
     engine, counts, expect, requests = serve(torch, dev, cfg, state_dict)
-    for label, kw, _ in requests[:2]:
-        engine.synthesize(**kw)
-        profile(torch, f"'{label}'", lambda: engine.synthesize(**kw), 8)
-    del engine
-    torch.cuda.empty_cache()
     print(f"launches on the main path: {counts}, expected {expect}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
+    for label, kw, _ in requests[:2]:
+        engine.synthesize(**kw)
+        profile(torch, f"'{label}'", lambda: engine.synthesize(**kw), 8)
     reference_check(torch, dev, cfg, state_dict)
+    long_audio = engine.synthesize(**requests[1][1])["audio"]
+    vc_counts = voice_conversion_phase(torch, dev, cfg, state_dict, engine, long_audio)
+    del engine
+    torch.cuda.empty_cache()
 
     root = tempfile.mkdtemp(prefix="vispeech_train_")
     try:
@@ -694,7 +869,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     train_reference(torch, cfg)
 
-    # serving counts A, B and C; the training run counts E and F
+    # A, B, C and D count the serving run and the VC run; the training run E and F
+    counts = {k: v + vc_counts[k] for k, v in counts.items()}
     counts.update({k: v for k, v in train_counts.items() if "_train_" in k})
     kernels = [dict(name=name, route="cuda",
                     source=f"vispeech_tpu_torch/csrc/{name.rsplit('_', 1)[0] if '_train_' in name else name}.cu",

@@ -8,8 +8,10 @@ so they also run where only PyTorch is installed:
 TF32 is off for the plain versions.  f32 tolerances cover summation order,
 and for kernel B also its 3-pass TF32 split (each product to ~2^-21
 relative, the tensor cores' f32 accumulation) over 960-term sums: 5e-5 on
-outputs of order 1.  bf16 output is held to 2^-7 of its peak, one bf16 ulp
-in the peak's binade.  The training kernels E and F, forward and every
+outputs of order 1, and 1e-4 of the peak over kernel B's 16 per-layer
+launches.  Kernel D in f32 is held to 1e-4 of its output's peak (sums of
+up to 15 · 128 terms).  bf16 output is held to 2^-7 of its peak, one bf16
+ulp in the peak's binade.  The training kernels E and F, forward and every
 gradient, are held to 1e-4 of each tensor's peak in f32 and 2^-7 of it
 with bf16 operands.
 """
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from vispeech_tpu_torch.ops.kernels import mrf_stage, rel_attention, wn_stack
+from vispeech_tpu_torch.ops.kernels import mrf_stage, mrf_stage_folded, rel_attention, wn_stack
 from vispeech_tpu_torch.ops.kernels import rel_attention_train, wn_stack_train
 
 KS, DILS = (3, 7, 11), ((1, 3, 5),) * 3
@@ -81,6 +83,43 @@ def test_wn_stack(device, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [37, 1400])
+def test_wn_stack_per_layer_mode(device, T):
+    """L = 16, k = 5 (the posterior encoder): one launch per layer."""
+    r = np.random.RandomState(6)
+    B, C, L, K = 2, 192, 16, 5
+    mask = (np.arange(T)[None, :] < np.array([T, T // 2])[:, None])[..., None]
+    w_rs = r.randn(L, C, 2 * C) * 0.05
+    w_rs[-1, :, C:] = 0.0
+    args = _cuda(device, r.randn(B, T, C), mask, r.randn(B, L, 2 * C) * 0.1,
+                 r.randn(L, K, C, 2 * C) * 0.03, w_rs, r.randn(L, 1, 2 * C) * 0.1)
+    before = wn_stack.launches
+    out = wn_stack.wn_stack(*args, K)
+    assert wn_stack.launches == before + L
+    ref = wn_stack.wn_stack_plain(*args, K)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,C,fold", [(1200, 32, 4), (4000, 32, 4), (960, 16, 4),
+                                      (808, 16, 8)])
+def test_mrf_stage_folded(device, dtype, T, C, fold):
+    """fold·C = 128 and 64 (zero-padded to 128 in the kernel); T/fold from
+    one window to several."""
+    r = np.random.RandomState(7)
+    x = _cuda(device, r.randn(2, T, C), dtype=dtype)[0]
+    packed = [_cuda(device, r.randn(3, k, C, C) * 0.05, r.randn(3, 1, C) * 0.1,
+                    r.randn(3, k, C, C) * 0.05, r.randn(3, 1, C) * 0.1) for k in KS]
+    before = mrf_stage_folded.launches
+    out = mrf_stage_folded.mrf_stack_folded(x, packed, KS, DILS, fold)
+    assert mrf_stage_folded.launches == before + 1 and out.dtype == dtype
+    ref = mrf_stage_folded.mrf_stack_folded_plain(x, packed, KS, DILS, fold).float()
+    tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * ref.abs().max().item()
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [100, 700])
 def test_mrf_stage(device, dtype, T):
@@ -99,9 +138,11 @@ def test_mrf_stage(device, dtype, T):
 
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
-    x = torch.zeros(1, 10, 32, device=device)
+    x = torch.zeros(1, 16, 32, device=device)
     with pytest.raises(ValueError, match="C = 64"):
         mrf_stage.mrf_stack(x, [], KS, DILS)
+    with pytest.raises(ValueError, match="fold·C <= 128"):
+        mrf_stage_folded.mrf_stack_folded(x, [], KS, DILS, 8)
     q = torch.zeros(1, 1, 10, 48, device=device)
     rel = torch.zeros(1, 9, 48, device=device)
     with pytest.raises(ValueError, match="d in"):
@@ -167,9 +208,44 @@ def test_inference_kernels_refuse_autograd_on_the_card(device):
     x = torch.zeros(1, 10, 64, device=device, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         mrf_stage.mrf_stack(x, [], KS, DILS)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mrf_stage_folded.mrf_stack_folded(x[..., :32], [], KS, DILS, 4)
     q = torch.zeros(1, 2, 10, 96, device=device, requires_grad=True)
     rel = torch.zeros(1, 9, 96, device=device)
     with pytest.raises(RuntimeError, match="rel_attention_train"):
         rel_attention.relative_self_attention(q, q, q, rel, rel, torch.ones(1, 10, device=device))
     with torch.no_grad():
         rel_attention.relative_self_attention(q, q, q, rel, rel, torch.ones(1, 10, device=device))
+
+
+@pytest.mark.cuda
+def test_generator_keeps_kernel_d_weights_while_frozen(device, monkeypatch):
+    """With frozen weight norms the serving generator prepares kernel D's
+    weights once per stage, prepares them again after a re-freeze, and
+    matches the wrapper that folds them at each call."""
+    from vispeech_tpu_torch.models.generator import Generator
+    from vispeech_tpu_torch.ops.layers import freeze_weight_norm
+
+    torch.manual_seed(0)
+    gen = Generator(16, "1", KS, DILS, (2,), 64, (4,))
+    for p in gen.parameters():
+        p.data.normal_(0.0, 0.05)
+    gen = freeze_weight_norm(gen.to(device).eval())
+    calls = []
+    real = mrf_stage_folded.prepare_weights
+    monkeypatch.setattr(mrf_stage_folded, "prepare_weights",
+                        lambda *a: calls.append(1) or real(*a))
+    x = torch.randn(2, 50, 16, device=device)
+    with torch.no_grad():
+        a, b = gen(x), gen(x)
+        assert len(calls) == 1 and torch.equal(a, b)
+        freeze_weight_norm(gen)
+        gen(x)
+        assert len(calls) == 2
+        gen._folded_cache.clear()
+        for block in gen.resblocks:
+            for conv in (*block.convs1, *block.convs2):
+                conv.folded = None   # weights recomputed at each call: no cache
+        c = gen(x)
+    assert len(calls) == 3 and not gen._folded_cache
+    torch.testing.assert_close(c, a, rtol=0, atol=1e-5)

@@ -25,10 +25,21 @@
 // gate, the residual update and the skip sum all happen on its own
 // accumulator registers.
 //
+// Deep stacks (L·(k//2) > 16, the 16-layer posterior encoder: a 32-frame
+// halo does not fit a 48-frame window) take the per-layer mode instead: one
+// launch per layer over tiles of WIN frames that read a k//2 halo of the
+// previous layer's state from global memory.  The residual state
+// (ping-ponged between two buffers, since neighbouring blocks read it) and
+// the skip sum stay in global memory in f32; at T = 1400, C = 192 they are
+// about 1 MB each and stay in L2.  The products are the same 3-pass TF32
+// tiles.
+//
 // Bound: at T = 1400, C = 192, L = 4 the stack is about 5 GFLOP per batch
 // item against ~2 MB of activations and 7 MB of weights: compute-bound.
 // Weights are read from L2 by every block; the halo costs WIN / tile = 1.5×
-// the flops at L = 4, and the split three times the tensor-core work.
+// the flops at L = 4, and the split three times the tensor-core work.  At
+// L = 16 the per-layer mode does 19.8 GFLOP per batch item with no halo
+// recompute.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,11 +94,17 @@ __device__ __forceinline__ void mma_step(float (*acc)[4][4], const float* a, int
   }
 }
 
+// DEEP = false: the whole stack in one launch, halo = L·(k//2) recomputed.
+// DEEP = true: layer `layer` only, halo = 0; x is that layer's input state,
+// `out` the next layer's (the stack's output after the last layer), `skip`
+// the skip sum so far (read from layer 1 on, written up to layer L − 2).
+template <bool DEEP>
 __global__ void __launch_bounds__(MAXC / 16 * 32)
 wn_stack_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                 const float* __restrict__ cond, const float* __restrict__ w_in,
                 const float* __restrict__ w_rs, const float* __restrict__ b_rs,
-                float* __restrict__ out, int T, int C, int L, int K, int halo) {
+                float* __restrict__ out, float* __restrict__ skip_g, int T, int C, int L, int K,
+                int halo, int layer) {
   extern __shared__ float smem[];
   const int pad = K / 2;
   const int lds = C + 4;                    // rows 8 apart fall in other banks
@@ -105,7 +122,8 @@ wn_stack_kernel(const float* __restrict__ x, const float* __restrict__ mask,
 
   for (int i = threadIdx.x; i < (WIN + 2 * pad) * C; i += blockDim.x) {
     const int r = i / C, c = i % C, t = t0 + r - pad;
-    xs[r * lds + c] = (r >= pad && r < WIN + pad && t >= 0 && t < T) ? xb[(size_t)t * C + c] : 0.f;
+    const bool in_win = DEEP || (r >= pad && r < WIN + pad);  // deep: the halo rows too
+    xs[r * lds + c] = (in_win && t >= 0 && t < T) ? xb[(size_t)t * C + c] : 0.f;
   }
   for (int r = threadIdx.x; r < WIN; r += blockDim.x) {
     const int t = t0 + r;
@@ -125,7 +143,7 @@ wn_stack_kernel(const float* __restrict__ x, const float* __restrict__ mask,
 #pragma unroll
       for (int e = 0; e < 4; ++e) skip[mt][j][e] = 0.f;
 
-  for (int l = 0; l < L; ++l) {
+  for (int l = DEEP ? layer : 0; l < (DEEP ? layer + 1 : L); ++l) {
     float acc[MT][4][4];
     const float* cl = cond + ((size_t)b * L + l) * C2;
 #pragma unroll
@@ -174,7 +192,18 @@ wn_stack_kernel(const float* __restrict__ x, const float* __restrict__ mask,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = mt * 16 + g + 8 * (e >> 1), c = cols[j] + 2 * tq + (e & 1);
-          if (l < L - 1) {
+          if constexpr (DEEP) {
+            if (t0 + r < T) {
+              const size_t o = ((size_t)b * T + t0 + r) * C + c;
+              const float s = l == 0 ? 0.f : skip_g[o];
+              if (l < L - 1) {
+                out[o] = (xs[(r + pad) * lds + c] + acc[mt][j][e]) * ms[r];
+                skip_g[o] = s + acc[mt][j + 2][e];
+              } else {
+                out[o] = (s + acc[mt][j][e]) * ms[r];
+              }
+            }
+          } else if (l < L - 1) {
             float* xp = xs + (r + pad) * lds + c;
             *xp = (*xp + acc[mt][j][e]) * ms[r];
             skip[mt][j][e] += acc[mt][j + 2][e];
@@ -186,6 +215,23 @@ wn_stack_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
+template <bool DEEP>
+int launch(const float* x, const float* mask, const float* cond, const float* w_in,
+           const float* w_rs, const float* b_rs, float* out, float* skip, int B, int T, int C,
+           int L, int K, int layer, cudaStream_t stream) {
+  const int halo = DEEP ? 0 : L * (K / 2);
+  const int tile = WIN - 2 * halo;
+  if (C > MAXC || C % 16 != 0 || K % 2 == 0 || tile < 16) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)(2 * WIN + 2 * (K / 2)) * (C + 4) + WIN) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(wn_stack_kernel<DEEP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + tile - 1) / tile, B);
+  wn_stack_kernel<DEEP><<<grid, C / 16 * 32, smem, stream>>>(
+      x, mask, cond, w_in, w_rs, b_rs, out, skip, T, C, L, K, halo, layer);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x, out: [B, T, C]; mask: [B, T]; cond: [B, L, 2C]; w_in: [L, K, C, 2C];
@@ -194,15 +240,19 @@ wn_stack_kernel(const float* __restrict__ x, const float* __restrict__ mask,
 extern "C" int wn_stack_launch(const float* x, const float* mask, const float* cond,
                                const float* w_in, const float* w_rs, const float* b_rs,
                                float* out, int B, int T, int C, int L, int K, void* stream) {
-  const int halo = L * (K / 2);
-  const int tile = WIN - 2 * halo;
-  if (C > MAXC || C % 16 != 0 || K % 2 == 0 || tile < 16) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)(2 * WIN + 2 * (K / 2)) * (C + 4) + WIN) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(wn_stack_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + tile - 1) / tile, B);
-  wn_stack_kernel<<<grid, C / 16 * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, mask, cond, w_in, w_rs, b_rs, out, T, C, L, K, halo);
-  return (int)cudaGetLastError();
+  return launch<false>(x, mask, cond, w_in, w_rs, b_rs, out, nullptr, B, T, C, L, K, 0,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// One layer of the per-layer mode, any L: x is layer `layer`'s input state,
+// out receives the next layer's state, or the stack's output when layer =
+// L − 1; skip [B, T, C] f32 carries the skip sum between launches (layer 0
+// writes it; it must not alias x or out).  Shapes and rules as above, any L.
+extern "C" int wn_stack_layer_launch(const float* x, const float* mask, const float* cond,
+                                     const float* w_in, const float* w_rs, const float* b_rs,
+                                     float* out, float* skip, int B, int T, int C, int L, int K,
+                                     int layer, void* stream) {
+  if (layer < 0 || layer >= L) return (int)cudaErrorInvalidValue;
+  return launch<true>(x, mask, cond, w_in, w_rs, b_rs, out, skip, B, T, C, L, K, layer,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -5,7 +5,9 @@ frame bucket → ``Synthesizer.infer`` → int16 PCM quantised on the device.
 Scalar controls multiply the predictions; per-phoneme arrays replace them.
 ``synthesize_batch`` groups requests by frame bucket into batch tiers and
 runs the plans one after another on the current stream (sequential
-dispatch; no side-stream overlap in this version).
+dispatch; no side-stream overlap in this version).  ``voice_conversion``
+takes a waveform: host linear spectrogram → serving bucket →
+``Synthesizer.voice_conversion`` → f32 audio.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from vispeech_tpu_torch.config import Config, load_config
+from vispeech_tpu_torch.data.dataset import numpy_spectrogram
 from vispeech_tpu_torch.infer.batching import DEFAULT_TIERS, pick_bucket, plan_batches
 from vispeech_tpu_torch.models.synthesizer import Synthesizer
 from vispeech_tpu_torch.ops.layers import freeze_weight_norm
@@ -268,3 +271,31 @@ class TTSEngine:
                     if pcm is not None:
                         results[i]["audio_int16"] = pcm[r, :n_samples]
         return results
+
+    # ------------------------------------------------------ voice conversion
+
+    def voice_conversion(self, wav: np.ndarray, speaker_src: Union[int, str],
+                         speaker_tgt: Union[int, str],
+                         eps: Optional[np.ndarray] = None) -> Dict[str, object]:
+        """Any-to-any conversion through the shared flow prior
+        (``vispeech_tpu/infer/pipeline.py:392``): ``wav`` [samples] → linear
+        spectrogram on the host, padded to the serving bucket →
+        ``Synthesizer.voice_conversion`` on the engine's device.  The
+        posterior noise comes from a generator seeded with 0 (as the JAX
+        engine draws it from a fixed key), or ``eps`` [1, bucket, inter]
+        injects it.  → {'audio' f32 [frames·hop], 'sampling_rate'}."""
+        d = self.cfg.data
+        spec = numpy_spectrogram(np.asarray(wav, np.float32), d.filter_length, d.hop_length,
+                                 d.win_length)
+        t = spec.shape[0]
+        spec_pad = np.zeros((1, pick_bucket(t), spec.shape[1]), np.float32)
+        spec_pad[0, :t] = spec
+        with self.policy.precision():
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            audio, _, _ = self.model.voice_conversion(
+                self._tensor(spec_pad), self._tensor([t], torch.long),
+                self._tensor([self._sid(speaker_src)], torch.long),
+                self._tensor([self._sid(speaker_tgt)], torch.long),
+                eps=None if eps is None else self._tensor(eps), generator=gen)
+            wav_out = audio[0, :t * d.hop_length, 0].cpu().numpy()
+        return {"audio": wav_out, "sampling_rate": d.sampling_rate}

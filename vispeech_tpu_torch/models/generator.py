@@ -3,13 +3,16 @@
 conv_pre k7 → + speaker cond → 4 × [leaky 0.1 → weight-norm ConvTranspose
 → mean of the 3 MRF branches] → leaky 0.01 → conv_post k7 (no bias) → tanh.
 Runs channel-first inside and in the dtype of its input.  With ResBlock1
-and ``fused`` (serving) the 64-channel MRF stage goes through kernel C's
-wrapper (``ops/kernels/mrf_stage.py``: the kernel on a CUDA tensor, its
-plain version on a CPU tensor); the other stages run the plain ResBlock1.
-Training passes ``fused=False``: kernel C has no backward, and every stage
-runs the plain, differentiable ResBlock1 (the JAX trainer's folded MRF
-computes the same math).  ``tail_f32`` runs the last leaky ReLU, conv_post
-and tanh in f32 whatever the body's dtype.
+and ``fused`` (serving), as the JAX generator dispatches under
+``fused_decode``: a stage narrower than 64 channels whose length divides by
+fold = 128 // C goes through kernel D's wrapper (``ops/kernels/
+mrf_stage_folded.py``, the polyphase-folded stage), the 64-channel stage
+through kernel C's (``ops/kernels/mrf_stage.py``) — each the kernel on a
+CUDA tensor, its plain version on a CPU tensor; the other stages run the
+plain ResBlock1.  Training passes ``fused=False``: C and D have no
+backward, and every stage runs the plain, differentiable ResBlock1 (the
+JAX trainer's folded MRF computes the same math).  ``tail_f32`` runs the
+last leaky ReLU, conv_post and tanh in f32 whatever the body's dtype.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from vispeech_tpu_torch.ops.kernels import mrf_stage
+from vispeech_tpu_torch.ops.kernels import mrf_stage, mrf_stage_folded
 from vispeech_tpu_torch.ops.layers import Conv1d, WNConvTranspose1d, leaky_relu
 from vispeech_tpu_torch.ops.resblock import ResBlock1, ResBlock2
 
@@ -52,6 +55,7 @@ class Generator(nn.Module):
             for rk, rd in zip(self.kernel_sizes, self.dilations):
                 self.resblocks.append(block(ch, rk, rd))
         self.conv_post = Conv1d(self.channels[-1], 1, 7, padding=3, bias=False)
+        self._folded_cache = {}   # stage → (key, frozen tensors, kernel D's weights)
 
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None, fused: bool = True,
                 tail_f32: bool = False) -> torch.Tensor:
@@ -63,7 +67,15 @@ class Generator(nn.Module):
         for i, (up, ch) in enumerate(zip(self.ups, self.channels)):
             x = up.forward_cf(leaky_relu(x, 0.1))
             blocks = self.resblocks[i * n:(i + 1) * n]
-            if fused and self.fused_mrf and ch == KERNEL_CHANNELS:
+            fold = max(1, 128 // ch)
+            if fused and self.fused_mrf and ch < KERNEL_CHANNELS and x.shape[-1] % fold == 0:
+                prepared = self._folded_weights(i, blocks, fold, x)
+                packed = None if prepared is not None else [b.packed() for b in blocks]
+                y = mrf_stage_folded.mrf_stack_folded(x.transpose(1, 2), packed,
+                                                      self.kernel_sizes, self.dilations, fold,
+                                                      prepared)
+                x = y.transpose(1, 2)
+            elif fused and self.fused_mrf and ch == KERNEL_CHANNELS:
                 y = mrf_stage.mrf_stack(x.transpose(1, 2), [b.packed() for b in blocks],
                                         self.kernel_sizes, self.dilations)
                 x = y.transpose(1, 2)
@@ -77,3 +89,23 @@ class Generator(nn.Module):
             x = x.float()
         x = self.conv_post.forward_cf(leaky_relu(x, 0.01))
         return torch.tanh(x).transpose(1, 2)
+
+    def _folded_weights(self, stage: int, blocks, fold: int, x: torch.Tensor):
+        """Kernel D's prepared weights for a stage on the card whose weight
+        norms are frozen (``freeze_weight_norm``, as serving does), kept
+        while those frozen tensors stay the same; None otherwise (CPU, or
+        weights that change: the wrapper folds them at each call)."""
+        convs = [c for b in blocks for c in (*b.convs1, *b.convs2)]
+        if x.device.type == "cpu" or any(c.folded is None for c in convs):
+            return None
+        tensors = [t for c in convs for t in (c.folded, c.bias)]
+        key = (x.dtype, fold, tuple((id(t), t._version) for t in tensors))
+        cached = self._folded_cache.get(stage)
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                prepared = mrf_stage_folded.prepare_weights(
+                    [b.packed() for b in blocks], self.kernel_sizes, self.dilations, fold,
+                    x.shape[1], x.dtype)
+            # the tensors stay referenced, so their ids cannot be reused
+            cached = self._folded_cache[stage] = (key, tensors, prepared)
+        return cached[2]

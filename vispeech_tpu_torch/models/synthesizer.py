@@ -3,6 +3,9 @@
 Inference: TextEncoder → duration, pitch and energy heads (with the
 override contract) → length regulator → FramePriorNet → Projection → z_p,
 then the 4 mean-only couplings in reverse → HiFi-GAN generator → tanh.
+Voice conversion: the posterior encoder on a linear spectrogram, the
+couplings forward under the source speaker and in reverse under the
+target, then the same generator.
 Training (``forward``): the same text side with teacher-forced duration,
 pitch and energy and their losses, the posterior encoder on the linear
 spectrogram, the couplings forward (z → z_p) and the generator on a random
@@ -372,9 +375,33 @@ class Synthesizer(nn.Module):
         z = self.flow(z_p, frame_mask, g=g, reverse=True) * frame_mask
         if max_len is not None:
             z, frame_mask = z[:, :max_len], frame_mask[:, :max_len]
+        return self._decode(z, g), z, frame_mask
+
+    def _decode(self, z, g):
+        """The vocoder in the policy's decode dtype (fused: kernels C and D
+        at the narrow stages) → audio [B, T·hop, 1] f32."""
         dtype = self.policy.torch_decode_dtype
         o = self.dec(z.to(dtype), g=None if g is None else g.to(dtype))
-        return o.float(), z, frame_mask
+        return o.float()
+
+    @_inference
+    def voice_conversion(self, spec, spec_lengths, sid_src, sid_tgt,
+                         eps: Optional[torch.Tensor] = None, generator=None):
+        """Any-to-any conversion through the shared flow prior
+        (``vispeech_tpu/models/synthesizer.py:635``): the posterior z of
+        ``spec`` [B, T, bins] under the source speaker, the couplings
+        forward with it and in reverse with the target, then the vocoder.
+        ``eps`` [B, T, inter] injects the posterior noise; None draws it from
+        ``generator``.  → (audio [B, T·hop, 1] f32, y_mask, (z, z_p, z_hat))."""
+        if self.n_speakers <= 1:
+            raise ValueError("voice conversion requires speakers (n_speakers > 1)")
+        g_src = self.emb_g(sid_src)[:, None, :]
+        g_tgt = self.emb_g(sid_tgt)[:, None, :]
+        z, _, _, y_mask = self.enc_q(spec, spec_lengths, g=g_src, eps=eps,
+                                     generator=generator)
+        z_p = self.flow(z, y_mask, g=g_src)
+        z_hat = self.flow(z_p, y_mask, g=g_tgt, reverse=True)
+        return self._decode(z_hat * y_mask, g_tgt), y_mask, (z, z_p, z_hat)
 
     @_inference
     def predict_durations(self, phonemes, phoneme_lengths, sid=None):

@@ -2,9 +2,10 @@
 counter.  A CPU tensor runs the plain version; a CUDA tensor launches the
 kernel (built on first use) or raises.
 
-Serving: A ``rel_attention``, B ``wn_stack``, C ``mrf_stage``, which have no
-backward.  Training: E ``wn_stack_train`` and F ``rel_attention_train``,
-each an autograd Function whose forward and backward are kernels.
+Serving: A ``rel_attention``, B ``wn_stack``, C ``mrf_stage`` and D
+``mrf_stage_folded``, which have no backward.  Training: E
+``wn_stack_train`` and F ``rel_attention_train``, each an autograd Function
+whose forward and backward are kernels.
 """
 
 import torch
@@ -23,6 +24,7 @@ def refuse_autograd(kernel: str, trainable: str, *tensors) -> None:
 
 from vispeech_tpu_torch.ops.kernels import (  # noqa: E402
     mrf_stage,
+    mrf_stage_folded,
     rel_attention,
     rel_attention_train,
     wn_stack,
@@ -34,6 +36,7 @@ COUNTERS = {
     "rel_attention": (rel_attention, "launches"),
     "wn_stack": (wn_stack, "launches"),
     "mrf_stage": (mrf_stage, "launches"),
+    "mrf_stage_folded": (mrf_stage_folded, "launches"),
     "wn_stack_train_fwd": (wn_stack_train, "fwd_launches"),
     "wn_stack_train_bwd": (wn_stack_train, "bwd_launches"),
     "rel_attention_train_fwd": (rel_attention_train, "fwd_launches"),
