@@ -8,12 +8,15 @@ and check them.
    ``vispeech_tpu_torch/csrc`` (one nvcc per source, all at once) and
    prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (TF32 off) and times both: A at T = 1400 and 512,
-   B at T = 1400 with L = 4 and a speaker, and in its per-layer mode at
-   L = 16 (the posterior encoder), C at a 1400-frame bucket (358 400
-   samples) in bf16 and f32, D at the same bucket's C = 32 stage (716 800
-   samples, fold 4) in bf16 and f32, timed beside the cuDNN ResBlock1
-   stage it replaces (unfolded, bf16).
+   main path's shapes (TF32 off) and times both: A at T = 96, 512 and 1400
+   (B = 1, H = 2, d = 96), B at T = 128 and 1400 with L = 4 and a speaker,
+   and in its per-layer mode at T = 1400, L = 16 (the posterior encoder),
+   its weights prepared once as serving calls it and, timed beside, at
+   the call; each A and B line prints the grid (CTAs, cluster size, key
+   splits or window).  C at a 1400-frame bucket (358 400 samples) in bf16
+   and f32, D at the same bucket's C = 32 stage (716 800 samples, fold 4)
+   in bf16 and f32, timed beside the cuDNN ResBlock1 stage it replaces
+   (unfolded, bf16).
 2b. E and F, forward and backward with every gradient, at the training
    shapes (B = 12, T = 1024): E with L = 16 and a speaker (enc_q) and
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
@@ -24,9 +27,11 @@ and check them.
    bucket, one with pitch and energy arrays) and a ``synthesize_batch`` of
    8; then checks the counters against the launches the path must make,
    and the audio: finite, frames × hop long, and the whole path with the
-   kernels in f32 against the plain f32 path on the CPU.  Two of
-   the requests run again under torch.profiler: device time by kernel and
-   the device's busy share of the wall time.
+   kernels in f32 against the plain f32 path on the CPU.  The whole
+   serving run once more under torch.profiler: each serving kernel's
+   summed device time over it.  Two of the requests run again under
+   torch.profiler: device time by kernel and the device's busy share of
+   the wall time.
 3d. Voice conversion of the long request's audio (1400 frames) through
    ``TTSEngine.voice_conversion``: launch counts (B 16 per-layer launches
    for the posterior encoder + 4 + 4 couplings, C 1, D 1), finite audio
@@ -48,6 +53,12 @@ and check them.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
 package is not beside this file, or when any phase fails.
+
+    python3 chip_smoke.py --kernel-times
+
+prints only kernels A and B's times at phase 2's shapes, as one JSON line,
+for the checkout this file sits in: a copy of this file in another checkout
+of the port times that one, so two versions compare within one run.
 """
 
 from __future__ import annotations
@@ -100,6 +111,27 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int):
+    """``fn``'s device time and host dispatch time per call, in ms: the
+    stream sleeps ~25 ms first, so the host has queued all ``reps`` calls
+    before the first one runs and the events see the device alone
+    (``time_ms`` includes the host's dispatch when it is the slower)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
@@ -118,73 +150,78 @@ def check_kernels(torch, dev):
         return sum(t.numel() * t.element_size() for t in ts)
 
     rows = {}
-    for T in (1400, 512):
+    for T in (32, 96, 512, 1400):
         B, H, d = 1, 2, 96
         q, k, v = rn(B, H, T, d), rn(B, H, T, d), rn(B, H, T, d)
         rk, rv = rn(1, 9, d, scale=d ** -0.5), rn(1, 9, d, scale=d ** -0.5)
-        n = T - 37
+        n = T - min(37, T // 4)
         mask = (torch.arange(T, device=dev) < n).float()[None]
         args = (q, k, v, rk, rv, mask)
         out = rel_attention.relative_self_attention(*args)
         ref = rel_attention.relative_self_attention_plain(*args)
         err = (out - ref)[:, :, :n].abs().max().item()
         ok = err <= 1e-4
-        ms = time_ms(lambda: rel_attention.relative_self_attention(*args), 20)
+        ms = time_ms(lambda: rel_attention.relative_self_attention(*args), 50)
+        on_dev, host = device_ms(lambda: rel_attention.relative_self_attention(*args), 50)
         plain = time_ms(lambda: rel_attention.relative_self_attention_plain(*args), 20)
         b_ms, b_by = bound(nbytes(*args, out), 4.0 * B * H * T * T * d, "float32")
-        print(f"kernel A rel_attention T={T}: {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e} (tol 1e-4 f32) "
-              f"{'ok' if ok else 'FAIL'}")
+        print(f"kernel A rel_attention B={B} H={H} T={T}: {ms:.4f} ms ({on_dev:.4f} ms of "
+              f"device time with calls queued ahead, {host:.4f} ms host dispatch), "
+              f"plain {plain:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), grid {rel_attention.launch_grid(B, H, T)}, "
+              f"max_abs_err {err:.3e} (tol 1e-4 f32) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel A disagrees at T={T}: {err}")
         if T == 1400:
             rows["rel_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                          bound_ms=b_ms, bound_by=b_by)
 
-    B, T, C, L, K = 1, 1400, 192, 4, 5
-    x = rn(B, T, C)
-    m = (torch.arange(T, device=dev) < T - 50).float()[None, :, None]
-    args = (x, m, rn(B, L, 2 * C, scale=0.1), rn(L, K, C, 2 * C, scale=0.03),
-            rn(L, C, 2 * C, scale=0.05), rn(L, 1, 2 * C, scale=0.1))
-    out = wn_stack.wn_stack(*args, K)
-    ref = wn_stack.wn_stack_plain(*args, K)
-    err = (out - ref).abs().max().item()
-    ms = time_ms(lambda: wn_stack.wn_stack(*args, K), 20)
-    plain = time_ms(lambda: wn_stack.wn_stack_plain(*args, K), 20)
-    flops = 2.0 * B * L * T * (K * C * 2 * C + C * 2 * C)
-    b_ms, b_by = bound(nbytes(*args, out), flops, "float32")
-    ok = err <= 1e-4
-    print(f"kernel B wn_stack T={T} L={L}: {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e} (tol 1e-4 f32) "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"kernel B disagrees: {err}")
-    rows["wn_stack"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=b_by)
-
-    # the posterior encoder: L = 16 takes B's per-layer mode, one launch a layer
-    L = 16
-    w_rs = rn(L, C, 2 * C, scale=0.05)
-    w_rs[-1, :, C:] = 0.0
-    args = (x, m, rn(B, L, 2 * C, scale=0.1), rn(L, K, C, 2 * C, scale=0.03), w_rs,
-            rn(L, 1, 2 * C, scale=0.1))
-    before = wn_stack.launches
-    out = wn_stack.wn_stack(*args, K)
-    n_launch = wn_stack.launches - before
-    ref = wn_stack.wn_stack_plain(*args, K)
-    err = (out - ref).abs().max().item()
-    peak = ref.abs().max().item()
-    tol = 1e-4 * max(peak, 1.0)
-    ms = time_ms(lambda: wn_stack.wn_stack(*args, K), 20)
-    plain = time_ms(lambda: wn_stack.wn_stack_plain(*args, K), 20)
-    flops = 2.0 * B * L * T * (K * C * 2 * C + C * 2 * C)
-    b_ms, b_by = bound(nbytes(*args, out), flops, "float32")
-    ok = err <= tol and n_launch == L
-    print(f"kernel B wn_stack per-layer mode T={T} L={L}: {n_launch} launches, {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP), "
-          f"max_abs_err {err:.3e} (peak {peak:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"kernel B's per-layer mode disagrees or launched {n_launch}: {err}")
+    C, K = 192, 5
+    for T, L in ((128, 4), (1400, 4), (1400, 16)):
+        # L = 16 is the posterior encoder, B's per-layer mode: one launch a layer
+        B = 1
+        x = rn(B, T, C)
+        m = (torch.arange(T, device=dev) < T - 50).float()[None, :, None]
+        w_rs = rn(L, C, 2 * C, scale=0.05)
+        w_rs[-1, :, C:] = 0.0
+        args = (x, m, rn(B, L, 2 * C, scale=0.1), rn(L, K, C, 2 * C, scale=0.03), w_rs,
+                rn(L, 1, 2 * C, scale=0.1))
+        # as serving calls it: the weights prepared once (WN.kernel_operands)
+        prep = wn_stack.prepare_weights(args[3], args[4])
+        served = args[:3] + (None, None, args[5], K, prep)
+        before = wn_stack.launches
+        out = wn_stack.wn_stack(*served)
+        n_launch = wn_stack.launches - before
+        if not torch.equal(out, wn_stack.wn_stack(*args, K)):
+            raise AssertionError("kernel B differs with weights prepared ahead and at the call")
+        ref = wn_stack.wn_stack_plain(*args, K)
+        err = (out - ref).abs().max().item()
+        peak = ref.abs().max().item()
+        # one launch: 5e-5 abs (as the card tests); per-layer mode: 1e-4 of
+        # the peak over 16 layers
+        tol = 1e-4 * max(peak, 1.0) if L == 16 else 5e-5
+        ms = time_ms(lambda: wn_stack.wn_stack(*served), 50)
+        plain = time_ms(lambda: wn_stack.wn_stack_plain(*args, K), 20)
+        at_call = time_ms(lambda: wn_stack.wn_stack(*args, K), 20)
+        ms2 = time_ms(lambda: wn_stack.wn_stack(*served), 50)
+        on_dev, host = device_ms(lambda: wn_stack.wn_stack(*served), 50)
+        flops = 2.0 * B * L * T * (K * C * 2 * C + C * 2 * C)
+        b_ms, b_by = bound(nbytes(*args, out), flops, "float32")
+        ok = err <= tol and n_launch == wn_stack.expected_launches(L, K)
+        print(f"kernel B wn_stack B={B} T={T} L={L}: {n_launch} launches, {ms:.4f} / "
+              f"{ms2:.4f} ms ({on_dev:.4f} ms of device time with calls queued ahead, "
+              f"{host:.4f} ms host dispatch; "
+              f"{at_call:.4f} ms preparing the weights at the call), "
+              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.2f} GFLOP), "
+              f"grid {wn_stack.launch_grid(B, T, L, K)}, max_abs_err {err:.3e} "
+              f"(peak {peak:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        ms = min(ms, ms2)
+        if not ok:
+            raise AssertionError(f"kernel B disagrees or launched {n_launch} at T={T} L={L}: "
+                                 f"{err}")
+        if (T, L) == (1400, 4):
+            rows["wn_stack"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                    bound_by=b_by)
 
     ks, dils, C = (3, 7, 11), ((1, 3, 5),) * 3, 64
     T = 1400 * 512 // 2  # the C = 64 stage runs at hop / 2 samples per frame
@@ -216,6 +253,41 @@ def check_kernels(torch, dev):
                                      bound_ms=b_ms, bound_by=b_by)
     rows["mrf_stage_folded"] = check_folded(torch, dev, rn, nbytes)
     return rows
+
+
+def kernel_times(torch, dev) -> dict:
+    """Kernels A and B at phase 2's shapes (B = 1), each call's time (events
+    around back-to-back calls) and device time (calls queued ahead), through
+    the interface every version of their wrappers has: the same script
+    times two checkouts of the port for an A/B in one run (--kernel-times)."""
+    from vispeech_tpu_torch.ops.kernels import rel_attention, wn_stack
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    times = {}
+    for T in (32, 96, 512, 1400):
+        H, d = 2, 96
+        mask = (torch.arange(T, device=dev) < T - min(37, T // 4)).float()[None]
+        args = (rn(1, H, T, d), rn(1, H, T, d), rn(1, H, T, d), rn(1, 9, d, scale=d ** -0.5),
+                rn(1, 9, d, scale=d ** -0.5), mask)
+        call = lambda: rel_attention.relative_self_attention(*args)  # noqa: E731
+        times[f"A T={T}"] = (time_ms(call, 50), device_ms(call, 50)[0])
+    C, K = 192, 5
+    prepare = getattr(wn_stack, "prepare_weights", None)   # absent before the redesign
+    for T, L in ((128, 4), (1400, 4), (1400, 16)):
+        mask = (torch.arange(T, device=dev) < T - 50).float()[None, :, None]
+        args = (rn(1, T, C), mask, rn(1, L, 2 * C, scale=0.1), rn(L, K, C, 2 * C, scale=0.03),
+                rn(L, C, 2 * C, scale=0.05), rn(L, 1, 2 * C, scale=0.1))
+        if prepare is None:
+            call = lambda: wn_stack.wn_stack(*args, K)  # noqa: E731
+        else:
+            prep = prepare(args[3], args[4])
+            call = lambda: wn_stack.wn_stack(*args[:3], None, None, args[5], K, prep)  # noqa: E731
+        times[f"B T={T} L={L}"] = (time_ms(call, 20), device_ms(call, 20)[0])
+    return times
 
 
 def check_folded(torch, dev, rn, nbytes, frames=1400):
@@ -462,6 +534,8 @@ def serve(torch, dev, cfg, state_dict):
     kernels.reset_launches()
     results, latency, batch, batch_s = run()
     counts = kernels.launch_counts()
+    # the same run once more under the profiler: each kernel's summed device time
+    profile(torch, "serving run (3 requests + batch of 8)", run, 12)
 
     # serving runs under no_grad: the training kernels E and F never launch
     expect = {k: 0 for k in counts}
@@ -501,9 +575,15 @@ def serve(torch, dev, cfg, state_dict):
     return engine, counts, expect, requests
 
 
+# the serving kernels' CUDA function names, as the profiler lists them
+KERNEL_FUNCS = {"rel_attention": "rel_attention_", "wn_stack": "wn_stack_kernel",
+                "mrf_stage": "mrf_stage_kernel", "mrf_stage_folded": "mrf_folded_kernel"}
+
+
 def profile(torch, label, fn, top):
     """``fn()`` once under torch.profiler: the device's busy share of its
-    wall time and the ``top`` device ops by time (phases 3c and 4)."""
+    wall time, the ``top`` device ops by time, and each serving kernel's
+    summed device time (phases 3, 3c, 3d and 4).  → {kernel: (ms, count)}."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -519,11 +599,19 @@ def profile(torch, label, fn, top):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms <= 0:
         print(f"profile {label}: wall {wall_ms:.2f} ms, device time not measured")
-        return
+        return {}
     print(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    totals = {}
+    for name, func in KERNEL_FUNCS.items():
+        hits = [e for e in events if func in e.key]
+        totals[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
+                        sum(e.count for e in hits))
+    print(f"  kernel device time over {label}: " + ", ".join(
+        f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in totals.items()))
+    return totals
 
 
 def reference_check(torch, dev, cfg, state_dict):
@@ -825,6 +913,10 @@ def main() -> int:
     from vispeech_tpu_torch.text import N_SYMBOLS
 
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--kernel-times"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps({"root": ROOT, "card": card_line(), "ms": kernel_times(torch, dev)}))
+        return 0
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()

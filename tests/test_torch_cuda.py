@@ -5,7 +5,8 @@ so they also run where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-TF32 is off for the plain versions.  f32 tolerances cover summation order,
+TF32 is off for the plain versions.  f32 tolerances cover summation order
+(kernel A's key splits and merge included),
 and for kernel B also its 3-pass TF32 split (each product to ~2^-21
 relative, the tensor cores' f32 accumulation) over 960-term sums: 5e-5 on
 outputs of order 1, and 1e-4 of the peak over kernel B's 16 per-layer
@@ -64,6 +65,87 @@ def test_rel_attention_fully_masked_row_finite(device):
     args = _cuda(device, q, q, q, np.zeros((1, 9, 96)), np.zeros((1, 9, 96)),
                  np.zeros((1, 64)))
     assert torch.isfinite(rel_attention.relative_self_attention(*args)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("T", [17, 32, 96, 129, 512, 1400])
+def test_rel_attention_key_splits(device, T, B):
+    """One and several key splits (``key_splits``), q, k, v given as the
+    projections' [B, H, T, d] views of [B, T, H, d] tensors."""
+    r = np.random.RandomState(8)
+    H, d = 2, 96
+    lengths = [T, max(T - 37, 1)][:B]
+    q, k, v = (torch.from_numpy(r.randn(B, T, H, d).astype(np.float32)).to(device)
+               .transpose(1, 2) for _ in range(3))
+    rel_k, rel_v, mask = _cuda(device, r.randn(1, 9, d) * d ** -0.5, r.randn(1, 9, d) * d ** -0.5,
+                               np.arange(T)[None, :] < np.array(lengths)[:, None])
+    before = rel_attention.launches
+    out = rel_attention.relative_self_attention(q, k, v, rel_k, rel_v, mask)
+    assert rel_attention.launches == before + 1
+    assert out.shape == (B, H, T, d) and out.transpose(1, 2).is_contiguous()
+    ref = rel_attention.relative_self_attention_plain(q.contiguous(), k.contiguous(),
+                                                      v.contiguous(), rel_k, rel_v, mask)
+    for b, n in enumerate(lengths):
+        torch.testing.assert_close(out[b, :, :n], ref[b, :, :n], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prepared", [False, True])
+@pytest.mark.parametrize("L", [4, 16])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("T", [37, 128, 1400])
+def test_wn_stack_cluster(device, T, B, L, prepared):
+    """Both modes (L = 4 one launch, L = 16 one per layer), weights
+    prepared ahead or at the call."""
+    r = np.random.RandomState(9)
+    C, K = 192, 5
+    mask = (np.arange(T)[None, :] < np.array([T, T // 2])[:B, None])[..., None]
+    w_rs = r.randn(L, C, 2 * C) * 0.05
+    w_rs[-1, :, C:] = 0.0
+    args = _cuda(device, r.randn(B, T, C), mask, r.randn(B, L, 2 * C) * 0.1,
+                 r.randn(L, K, C, 2 * C) * 0.03, w_rs, r.randn(L, 1, 2 * C) * 0.1)
+    before = wn_stack.launches
+    if prepared:
+        prep = wn_stack.prepare_weights(args[3], args[4])
+        out = wn_stack.wn_stack(*args[:3], None, None, args[5], K, prep)
+    else:
+        out = wn_stack.wn_stack(*args, K)
+    assert wn_stack.launches == before + wn_stack.expected_launches(L, K)
+    ref = wn_stack.wn_stack_plain(*args, K)
+    tol = 5e-5 if L == 4 else 1e-4 * ref.abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,L", [(64, 4), (256, 4), (256, 16)])
+def test_wn_stack_other_widths(device, C, L):
+    """One column group per CTA (C = 64), and the widest C = 256, whose
+    weight ring is two chunks deep."""
+    r = np.random.RandomState(10)
+    B, T, K = 1, 300, 5
+    mask = (np.arange(T) < T - 40)[None, :, None]
+    w_rs = r.randn(L, C, 2 * C) * 0.05
+    w_rs[-1, :, C:] = 0.0
+    args = _cuda(device, r.randn(B, T, C), mask, r.randn(B, L, 2 * C) * 0.1,
+                 r.randn(L, K, C, 2 * C) * 0.03, w_rs, r.randn(L, 1, 2 * C) * 0.1)
+    out = wn_stack.wn_stack(*args, K)
+    ref = wn_stack.wn_stack_plain(*args, K)
+    tol = 5e-5 if L == 4 else 1e-4 * ref.abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_wn_stack_rejects_channels_the_cluster_does_not_split(device):
+    x = torch.zeros(1, 20, 96, device=device)
+    before = wn_stack.launches
+    with pytest.raises(ValueError, match="steps of 64"):
+        wn_stack.wn_stack(x, torch.ones(1, 20, 1, device=device),
+                          torch.zeros(1, 4, 192, device=device),
+                          torch.zeros(4, 5, 96, 192, device=device),
+                          torch.zeros(4, 96, 192, device=device),
+                          torch.zeros(4, 1, 192, device=device), 5)
+    assert wn_stack.launches == before
 
 
 @pytest.mark.cuda

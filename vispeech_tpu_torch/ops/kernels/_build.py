@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -76,6 +77,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu``'s library, its argument types set
+    once per process and its result the launch's ``cudaError_t``."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _FUNCS[(name, symbol)] = fn
+    return fn
 
 
 def check(status: int, name: str) -> None:
