@@ -233,35 +233,62 @@ def _pinned(batch: dict) -> dict:
             for k, v in batch.items()}
 
 
+LOADER_THREAD = "vispeech-data-loader"
+
+
 def data_loader(dataset: FilelistDataset, sampler: BucketSampler, epoch: int,
                 prefetch: int = 4, phoneme_budgets: Optional[dict] = None,
                 device_dsp: bool = True) -> Iterator[dict]:
     """Batches of host tensors (pinned when a GPU is present), collated on
-    a background thread; a failure there is raised here."""
+    a background thread named ``LOADER_THREAD``; a failure there is raised
+    here.  Closing the generator early (a consumer that stops, as the
+    trainer does at ``max_steps``) stops the thread: it checks a stop event
+    between batches and while it waits on the full queue."""
     sampler.set_epoch(epoch)
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     sentinel = object()
     failure: list = []
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def worker():
         try:
             for bucket_id, indices in sampler:
-                q.put(_pinned(collate(dataset, indices, sampler.buckets[bucket_id],
-                                      phoneme_budget=(phoneme_budgets or {}).get(bucket_id),
-                                      device_dsp=device_dsp)))
+                if stop.is_set() or not put(_pinned(collate(
+                        dataset, indices, sampler.buckets[bucket_id],
+                        phoneme_budget=(phoneme_budgets or {}).get(bucket_id),
+                        device_dsp=device_dsp))):
+                    return
         except BaseException as e:  # re-raised on the consumer's thread
             failure.append(e)
         finally:
-            q.put(sentinel)
+            put(sentinel)
 
-    threading.Thread(target=worker, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is sentinel:
-            if failure:
-                raise failure[0]
-            return
-        yield item
+    thread = threading.Thread(target=worker, name=LOADER_THREAD, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if failure:
+                    raise failure[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        while thread.is_alive():   # a worker blocked on the full queue sees the event
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                thread.join(0.05)
 
 
 def device_batches(batches: Iterator[dict], device: torch.device) -> Iterator[dict]:

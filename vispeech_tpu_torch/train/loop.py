@@ -21,6 +21,7 @@ import os
 import signal
 import time
 from collections import deque
+from contextlib import closing
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -163,41 +164,46 @@ class Trainer:
             host = data_loader(self.train_set, self.sampler, epoch,
                                phoneme_budgets=self.phoneme_budgets,
                                device_dsp=self.cfg.train.device_dsp)
-            for batch in device_batches(host, self.device):
-                yield epoch, batch
+            try:
+                for batch in device_batches(host, self.device):
+                    yield epoch, batch
+            finally:
+                host.close()   # stops the loader's thread when the consumer stops early
 
     def _loop(self, max_steps: Optional[int]) -> None:
         cfg = self.cfg
         start_epoch = self.global_step // self.steps_per_epoch
         logger.info("starting at step %d (epoch %d)", self.global_step, start_epoch)
         t0 = time.time()
-        for epoch, batch in self.batches(start_epoch):
-            step = self.global_step
-            if self._stop_requested or (max_steps is not None and step >= max_steps):
-                if self._stop_requested:
-                    logger.info("stop requested: saving at step %d", step)
-                self._save(step)
-                return
-            shape = (batch["wav"].shape[1] // cfg.data.hop_length, batch["phonemes"].shape[1])
-            if shape not in self.shapes_seen:
-                self.shapes_seen.add(shape)
-                logger.info("step %d: new batch shape T=%d N=%d", step, *shape)
-            t_step = time.perf_counter()
-            metrics = self.step_fn(batch)
-            self.step_times.append((shape[0], time.perf_counter() - t_step))
-            step += 1
-            if step % cfg.train.log_interval == 0:
-                dt = time.time() - t0
-                t0 = time.time()
-                m = {k: float(v) for k, v in metrics.items()}
-                logger.info(
-                    "epoch %d step %d: g=%.3f d=%.3f mel=%.3f kl=%.3f lr=%.3g "
-                    "(%.2f steps/s)", epoch, step, m["loss/g/total"], m["loss/d/total"],
-                    m["loss/g/mel"], m["loss/g/kl"],
-                    learning_rate(cfg, step, self.steps_per_epoch),
-                    cfg.train.log_interval / max(dt, 1e-9))
-            if step % cfg.train.eval_interval == 0:
-                self._save(step)
+        with closing(self.batches(start_epoch)) as batches:
+            for epoch, batch in batches:
+                step = self.global_step
+                if self._stop_requested or (max_steps is not None and step >= max_steps):
+                    if self._stop_requested:
+                        logger.info("stop requested: saving at step %d", step)
+                    self._save(step)
+                    return
+                shape = (batch["wav"].shape[1] // cfg.data.hop_length,
+                         batch["phonemes"].shape[1])
+                if shape not in self.shapes_seen:
+                    self.shapes_seen.add(shape)
+                    logger.info("step %d: new batch shape T=%d N=%d", step, *shape)
+                t_step = time.perf_counter()
+                metrics = self.step_fn(batch)
+                self.step_times.append((shape[0], time.perf_counter() - t_step))
+                step += 1
+                if step % cfg.train.log_interval == 0:
+                    dt = time.time() - t0
+                    t0 = time.time()
+                    m = {k: float(v) for k, v in metrics.items()}
+                    logger.info(
+                        "epoch %d step %d: g=%.3f d=%.3f mel=%.3f kl=%.3f lr=%.3g "
+                        "(%.2f steps/s)", epoch, step, m["loss/g/total"], m["loss/d/total"],
+                        m["loss/g/mel"], m["loss/g/kl"],
+                        learning_rate(cfg, step, self.steps_per_epoch),
+                        cfg.train.log_interval / max(dt, 1e-9))
+                if step % cfg.train.eval_interval == 0:
+                    self._save(step)
         self._save(self.global_step)
 
     def _write_stats(self) -> None:
