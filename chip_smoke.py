@@ -223,43 +223,105 @@ def check_kernels(torch, dev):
             rows["wn_stack"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                                     bound_by=b_by)
 
-    ks, dils, C = (3, 7, 11), ((1, 3, 5),) * 3, 64
-    T = 1400 * 512 // 2  # the C = 64 stage runs at hop / 2 samples per frame
-    packed = [(rn(3, kk, C, C, scale=0.03), rn(3, 1, C, scale=0.1),
-               rn(3, kk, C, C, scale=0.03), rn(3, 1, C, scale=0.1)) for kk in ks]
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        x = rn(1, T, C, dtype=dtype)
-        out = mrf_stage.mrf_stack(x, packed, ks, dils)
-        ref = mrf_stage.mrf_stack_plain(x, packed, ks, dils)
-        err = (out.float() - ref.float()).abs().max().item()
-        peak = ref.float().abs().max().item()
-        # f32: summation order; bf16: 2^-7 of the peak, one bf16 ulp in its binade
-        tol = 1e-4 if dtype == torch.float32 else peak * 2.0 ** -7
-        ms = time_ms(lambda: mrf_stage.mrf_stack(x, packed, ks, dils), 5)
-        plain = time_ms(lambda: mrf_stage.mrf_stack_plain(x, packed, ks, dils), 5)
-        w_bytes = sum(nbytes(w1, w2) * x.element_size() // 4 + nbytes(b1, b2)
-                      for w1, b1, w2, b2 in packed)
-        flops = 2.0 * T * C * C * 2 * sum(kk * len(d) for kk, d in zip(ks, dils))
-        b_ms, b_by = bound(nbytes(x, out) + w_bytes, flops, name)
-        ok = err <= tol
-        print(f"kernel C mrf_stage T={T} {name}: {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), max_abs_err {err:.3e} (tol {tol:.3e}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"kernel C disagrees in {name}: {err} > {tol}")
-        if dtype == torch.bfloat16:
-            rows["mrf_stage"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                     bound_ms=b_ms, bound_by=b_by)
+    # kernel C at the C = 64 stage of a 128- and a 1400-frame bucket (256
+    # samples a frame); a batched shape of the serving run follows phase 3
+    rows["mrf_stage"] = check_mrf(torch, dev, MRF_TIMED[:2])
     rows["mrf_stage_folded"] = check_folded(torch, dev, rn, nbytes)
     return rows
 
 
+MRF_SAMPLES = 256   # samples a frame at the C = 64 stage: hop 512 over the last ×2 upsample
+MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
+# kernel C's timed (B, T): buckets 128 and 1400 at batch 1, and a plan of the
+# serving run's synthesize_batch
+MRF_TIMED = ((1, 128 * MRF_SAMPLES), (1, 1400 * MRF_SAMPLES), (2, 256 * MRF_SAMPLES))
+
+
+def mrf_weights(torch, dev, gen, C=64):
+    """Kernel C's weights (ResBlock1.packed() per branch), drawn from gen."""
+    def rn(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    return [(rn(3, k, C, C, scale=0.03), rn(3, 1, C, scale=0.1), rn(3, k, C, C, scale=0.03),
+             rn(3, 1, C, scale=0.1)) for k in MRF_KS]
+
+
+def kernel_ms(torch, fn, func: str, reps: int) -> float:
+    """Mean device time of the kernels named ``func`` over ``reps`` calls of
+    ``fn``, from torch.profiler's CUDA activity: the kernel alone, whatever
+    else the call launches; 0 when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if func in e.key]
+    return sum(e.self_device_time_total for e in hits) / 1e3 / reps
+
+
+def check_mrf(torch, dev, shapes):
+    """Kernel C at each (B, T) of ``shapes`` against its plain version in
+    f32 and bf16, its weights prepared once as the serving generator keeps
+    them (equal to preparing them at the call), with wall time, device time
+    (calls queued ahead), host dispatch, the plain version's time, the bound
+    and the grid.  → the JSON row of the last shape's bf16 run."""
+    from vispeech_tpu_torch.ops.kernels import mrf_stage
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    packed = mrf_weights(torch, dev, gen)
+    ks, dils, C = MRF_KS, MRF_DILS, 64
+    flops_per_sample = 2.0 * C * C * 2 * sum(k * len(d) for k, d in zip(ks, dils))
+    row = None
+    for B, T in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            x = (torch.randn(B, T, C, generator=gen)).to(dev, dtype)
+            prep = mrf_stage.prepare_weights(packed, ks, dils, dtype)
+            out = mrf_stage.mrf_stack(x, None, ks, dils, prep)
+            if not torch.equal(out, mrf_stage.mrf_stack(x, packed, ks, dils)):
+                raise AssertionError("kernel C differs with weights prepared ahead and at the "
+                                     "call")
+            ref = mrf_stage.mrf_stack_plain(x, packed, ks, dils)
+            err = (out.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            # f32: summation order; bf16: 2^-7 of the peak, one bf16 ulp in its binade
+            tol = 1e-4 if dtype == torch.float32 else peak * 2.0 ** -7
+            ok = err <= tol
+            call = lambda: mrf_stage.mrf_stack(x, None, ks, dils, prep)  # noqa: E731
+            reps = 3 if dtype == torch.float32 else max(5, min(50, 2 ** 23 // (B * T)))
+            ms = time_ms(call, reps)
+            on_dev, host = device_ms(call, reps)
+            plain = time_ms(lambda: mrf_stage.mrf_stack_plain(x, packed, ks, dils),
+                            max(2, reps // 5))
+            nb = (x.numel() + out.numel()) * x.element_size() + (
+                prep.w.numel() * prep.w.element_size() + prep.b.numel() * 4)
+            b_ms, b_by = bound(nb, flops_per_sample * B * T, name)
+            print(f"kernel C mrf_stage B={B} T={T} {name}: {ms:.4f} ms ({on_dev:.4f} ms of "
+                  f"device time with calls queued ahead, {host:.4f} ms host dispatch), plain "
+                  f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"{flops_per_sample * B * T / 1e9:.1f} GFLOP), grid "
+                  f"{mrf_stage.launch_grid(B, T)}, max_abs_err {err:.3e} (peak {peak:.3e}, "
+                  f"tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel C disagrees at B={B} T={T} in {name}: "
+                                     f"{err} > {tol}")
+            if dtype == torch.bfloat16:
+                row = dict(max_abs_err=err, ms=on_dev, plain_ms=plain, bound_ms=b_ms,
+                           bound_by=b_by)
+    return row
+
+
 def kernel_times(torch, dev) -> dict:
-    """Kernels A and B at phase 2's shapes (B = 1), each call's time (events
-    around back-to-back calls) and device time (calls queued ahead), through
-    the interface every version of their wrappers has: the same script
-    times two checkouts of the port for an A/B in one run (--kernel-times)."""
+    """Kernels A and B at phase 2's shapes (B = 1) and C at ``MRF_TIMED``,
+    each call's time (events around back-to-back calls) and device time
+    (calls queued ahead), and for C the kernel's own device time (profiler),
+    through the interface every version of their wrappers has: the same
+    script times two checkouts of the port for an A/B in one run
+    (--kernel-times)."""
     from vispeech_tpu_torch.ops.kernels import rel_attention, wn_stack
 
     gen = torch.Generator().manual_seed(SEED)
@@ -287,6 +349,23 @@ def kernel_times(torch, dev) -> dict:
             prep = prepare(args[3], args[4])
             call = lambda: wn_stack.wn_stack(*args[:3], None, None, args[5], K, prep)  # noqa: E731
         times[f"B T={T} L={L}"] = (time_ms(call, 20), device_ms(call, 20)[0])
+    # kernel C in bf16 at phase 2's shapes and a batched one of the serving
+    # run; the kernel's own device time from the profiler besides, since a
+    # version without prepared weights packs them on the card at each call
+    from vispeech_tpu_torch.ops.kernels import mrf_stage
+
+    packed = mrf_weights(torch, dev, gen)
+    prepare = getattr(mrf_stage, "prepare_weights", None)
+    for B, T in MRF_TIMED:
+        x = rn(B, T, 64).bfloat16()
+        if prepare is None:
+            call = lambda: mrf_stage.mrf_stack(x, packed, MRF_KS, MRF_DILS)  # noqa: E731
+        else:
+            prep = prepare(packed, MRF_KS, MRF_DILS, torch.bfloat16)
+            call = lambda: mrf_stage.mrf_stack(x, None, MRF_KS, MRF_DILS, prep)  # noqa: E731
+        reps = max(5, min(50, 2 ** 23 // (B * T)))
+        times[f"C B={B} T={T}"] = (time_ms(call, reps), device_ms(call, reps)[0],
+                                   kernel_ms(torch, call, "mrf_stage_kernel", reps))
     return times
 
 
@@ -529,13 +608,30 @@ def serve(torch, dev, cfg, state_dict):
         return results, latency, batch, time.perf_counter() - t0
 
     # a first pass meets every shape once (cuDNN and cuBLAS plans, the
-    # kernels' build); the counted and timed pass comes after it
+    # kernels' build); the counted and timed pass comes after it, with the
+    # (B, T) of every kernel C launch recorded
+    from vispeech_tpu_torch.ops.kernels import mrf_stage
+
     run()
+    c_shapes, wrapper = [], mrf_stage.mrf_stack
+
+    def recorded(x, *args, **kwargs):
+        if x.is_cuda:
+            c_shapes.append(tuple(x.shape[:2]))
+        return wrapper(x, *args, **kwargs)
+
     kernels.reset_launches()
-    results, latency, batch, batch_s = run()
+    mrf_stage.mrf_stack = recorded
+    try:
+        results, latency, batch, batch_s = run()
+    finally:
+        mrf_stage.mrf_stack = wrapper
     counts = kernels.launch_counts()
     # the same run once more under the profiler: each kernel's summed device time
-    profile(torch, "serving run (3 requests + batch of 8)", run, 12)
+    totals = profile(torch, "serving run (3 requests + batch of 8)", run, 12)
+    if "mrf_stage" in totals:
+        print(f"  kernel C over the serving run: {totals['mrf_stage'][0]:.4f} ms of device time "
+              f"in {len(c_shapes)} launches at (B, T) {c_shapes}")
 
     # serving runs under no_grad: the training kernels E and F never launch
     expect = {k: 0 for k in counts}
@@ -543,8 +639,9 @@ def serve(torch, dev, cfg, state_dict):
                    "wn_stack": 4 * len(requests), "mrf_stage": len(requests),
                    "mrf_stage_folded": len(requests)})
     n_list = [len(o["phones"]) for o in batch]
-    totals = [max(int(o["duration"].sum()), 1) for o in batch]
-    n_plans = len(plan_batches(totals))
+    frames = [max(int(o["duration"].sum()), 1) for o in batch]
+    plans = plan_batches(frames)
+    n_plans = len(plans)
     n_pads = len({min(-(-max(n, 1) // 32) * 32, engine.max_phonemes) for n in n_list})
     expect["rel_attention"] += n_attn * n_pads + (n_attn + n_pitch + n_attn) * n_plans
     expect["wn_stack"] += 4 * n_plans
@@ -572,7 +669,8 @@ def serve(torch, dev, cfg, state_dict):
           f"{sum(latency):.4f} s: {req_audio / sum(latency):.2f} audio-s/s")
     print(f"synthesize_batch: 8 requests in {n_plans} plans, {batch_audio:.3f} s audio in "
           f"{batch_s:.4f} s: {batch_audio / batch_s:.2f} audio-s/s")
-    return engine, counts, expect, requests
+    print(f"synthesize_batch plans (tier, bucket): {[(p.tier, p.bucket) for p in plans]}")
+    return engine, counts, expect, requests, plans
 
 
 # the serving kernels' CUDA function names, as the profiler lists them
@@ -941,10 +1039,13 @@ def main() -> int:
     state_dict = model.state_dict()
     del model
 
-    engine, counts, expect, requests = serve(torch, dev, cfg, state_dict)
+    engine, counts, expect, requests, plans = serve(torch, dev, cfg, state_dict)
     print(f"launches on the main path: {counts}, expected {expect}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
+    # kernel C at the largest batched plan the serving run launched
+    plan = max(plans, key=lambda p: (p.tier > 1, p.tier * p.bucket))
+    check_mrf(torch, dev, [(plan.tier, plan.bucket * MRF_SAMPLES)])
     for label, kw, _ in requests[:2]:
         engine.synthesize(**kw)
         profile(torch, f"'{label}'", lambda: engine.synthesize(**kw), 8)

@@ -218,6 +218,69 @@ def test_mrf_stage(device, dtype, T):
     torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
 
 
+def _mrf_weights(r, C=64, scale=0.03):
+    return [[torch.from_numpy(a.astype(np.float32)) for a in (
+        r.randn(3, k, C, C) * scale, r.randn(3, 1, C) * 0.1,
+        r.randn(3, k, C, C) * scale, r.randn(3, 1, C) * 0.1)] for k in KS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prepared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", [(1, 77), (1, 1000), (8, 300), (1, 358400)])
+def test_mrf_stage_shapes(device, B, T, dtype, prepared):
+    """Below one tile, not a multiple of the tile, a batch of 8, and the
+    1400-frame bucket's C = 64 stage; weights prepared ahead (as the serving
+    generator keeps them) or at the call."""
+    r = np.random.RandomState(11)
+    x = _cuda(device, r.randn(B, T, 64), dtype=dtype)[0]
+    packed = [[t.to(device) for t in branch] for branch in _mrf_weights(r)]
+    prep = mrf_stage.prepare_weights(packed, KS, DILS, dtype) if prepared else None
+    before = mrf_stage.launches
+    out = mrf_stage.mrf_stack(x, None if prepared else packed, KS, DILS, prep)
+    assert mrf_stage.launches == before + 1 and out.dtype == dtype
+    ref = mrf_stage.mrf_stack_plain(x, packed, KS, DILS).float()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * ref.abs().max().item()
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_generator_keeps_kernel_c_weights_while_frozen(device, monkeypatch):
+    """The serving generator prepares kernel C's weights once per frozen
+    weight set (and packs none at a request), again after an in-place
+    update, and matches the wrapper that prepares them at each call."""
+    from vispeech_tpu_torch.models.generator import Generator
+    from vispeech_tpu_torch.ops.layers import freeze_weight_norm
+    from vispeech_tpu_torch.ops.resblock import ResBlock1
+
+    torch.manual_seed(0)
+    gen = Generator(16, "1", KS, DILS, (2,), 128, (4,))   # one stage at C = 64
+    for p in gen.parameters():
+        p.data.normal_(0.0, 0.05)
+    gen = freeze_weight_norm(gen.to(device).eval())
+    calls, packs = [], []
+    real, real_packed = mrf_stage.prepare_weights, ResBlock1.packed
+    monkeypatch.setattr(mrf_stage, "prepare_weights", lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(ResBlock1, "packed", lambda self: packs.append(1) or real_packed(self))
+    x = torch.randn(2, 50, 16, device=device).bfloat16()
+    with torch.no_grad():
+        a = gen(x)
+        n_packs = len(packs)
+        b = gen(x)
+        assert len(calls) == 1 and len(packs) == n_packs and torch.equal(a, b)
+        gen.resblocks[1].convs2[0].folded.mul_(1.5)
+        c = gen(x)
+        assert len(calls) == 2 and not torch.equal(a, c)
+        gen._kernel_cache.clear()
+        for block in gen.resblocks:
+            for conv in (*block.convs1, *block.convs2):
+                conv.folded = None   # weights recomputed at each call: no cache
+        gen.resblocks[1].convs2[0].weight_g.data.mul_(1.5)
+        d = gen(x)
+    assert len(calls) == 3 and not gen._kernel_cache
+    torch.testing.assert_close(d.float(), c.float(), rtol=0, atol=2e-2)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
     x = torch.zeros(1, 16, 32, device=device)
@@ -324,10 +387,10 @@ def test_generator_keeps_kernel_d_weights_while_frozen(device, monkeypatch):
         freeze_weight_norm(gen)
         gen(x)
         assert len(calls) == 2
-        gen._folded_cache.clear()
+        gen._kernel_cache.clear()
         for block in gen.resblocks:
             for conv in (*block.convs1, *block.convs2):
                 conv.folded = None   # weights recomputed at each call: no cache
         c = gen(x)
-    assert len(calls) == 3 and not gen._folded_cache
+    assert len(calls) == 3 and not gen._kernel_cache
     torch.testing.assert_close(c, a, rtol=0, atol=1e-5)

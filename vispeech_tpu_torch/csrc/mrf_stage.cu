@@ -21,13 +21,17 @@
 //
 // Bound: 2·k·C² flops per sample per conv, 18 convs: ~1.03 MFLOP per
 // sample, ~370 GFLOP for a 1400-frame bucket (358 400 samples) against
-// 2·T·C·2 bytes of I/O — compute-bound.  In bf16 each conv is a GEMM on the
-// tensor cores (mma.sync m16n8k16, f32 accumulate): 16 warps each own a
-// 16-row slab × 64 columns; per tap, the slab's rows shifted by the tap
-// offset (ldmatrix from padded rows) times the tap's [64, 64] weight, which
-// cp.async stages into shared memory one tap ahead.  The epilogue works on
-// the accumulator registers.  In f32 the convs run on the CUDA cores.  The
-// halo costs ~1.35× extra flops.
+// 2·T·C·2 bytes of I/O — compute-bound.  bf16: each conv is a GEMM on the
+// tensor cores (mma.sync m16n8k16, f32 accumulate); 16 consumer warps each
+// own a 16-row slab × 64 columns.  The weights arrive prepared
+// (ops/kernels/mrf_stage.py::prepare_weights): every tap of every conv in
+// the order the block uses them, as [cout/8][cin/8][8][8] core matrices of
+// 8 KB.  A producer warp streams them by bulk copies (the tensor memory
+// accelerator) into a ring of NSLOT taps, each slot with a "full" mbarrier
+// (the copy's bytes) and an "empty" one (one arrival per consumer warp), so
+// no block-wide barrier separates the taps; consumers sync among themselves
+// (a named barrier) only around the elementwise passes.  f32: the convs run
+// on the CUDA cores.  The halo costs ~1.35× extra flops.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,18 +44,7 @@ constexpr int TT = 128;
 constexpr int HALO = 64;
 constexpr int WIN = TT + 2 * HALO;
 constexpr int LD = C + 1;        // f32 smem row: rows 8 apart fall in other banks
-constexpr int HROWS = WIN + 16;  // conv-input rows: the last 16-row slab may read past WIN
-constexpr int LDB = C + 8;       // bf16 smem row (144 B): ldmatrix rows hit distinct banks
 constexpr int MAXB = 4, MAXU = 4;
-
-// threads per block: f32 SIMT 16 column groups × 16 row groups; bf16 one
-// warp per 16-row slab of the 256-row window
-template <typename T> struct Cfg {
-  static constexpr int NT = 256, LDH = LD;
-};
-template <> struct Cfg<__nv_bfloat16> {
-  static constexpr int NT = 512, LDH = LDB;
-};
 
 struct MrfSpec {
   int n_br, n_unit;
@@ -59,13 +52,11 @@ struct MrfSpec {
   int dil[MAXB][MAXU];
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ int receptive_radius(const MrfSpec& spec, int br) {
+  const int half = (spec.k[br] - 1) / 2;
+  int radius = 0;
+  for (int u = 0; u < spec.n_unit; ++u) radius += half * spec.dil[br][u] + half;
+  return radius;
 }
 
 __device__ __forceinline__ float leaky(float v) { return v >= 0.f ? v : 0.1f * v; }
@@ -127,8 +118,113 @@ __device__ void conv_f32(const float* src, float* hdst, float* st, const float* 
   }
 }
 
+
+// ---------------------------------------------------------------- f32 path
+// 256 threads: 16 column groups × 16 row groups; the conv inputs in f32.
+
+constexpr int NT_F32 = 256;
+
+__global__ void __launch_bounds__(NT_F32, 1)
+mrf_stage_kernel_f32(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ out, int T,
+                     MrfSpec spec) {
+  constexpr int PER = TT * C / NT_F32;  // centre elements per thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* st = reinterpret_cast<float*>(smem);   // branch state
+  float* h = st + WIN * LD;                     // first conv input
+  float* h2 = h + WIN * LD;                     // second conv input
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TT - HALO;  // global sample of window row 0
+  const float* xb = x + (size_t)b * T * C;
+
+  float acc[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) acc[j] = 0.f;
+
+  size_t woff = 0, boff = 0;
+  for (int br = 0; br < spec.n_br; ++br) {
+    const int k = spec.k[br], half = (k - 1) / 2;
+    const int radius = receptive_radius(spec, br);
+    int lo = HALO - radius, hi = HALO + TT + radius;
+    __syncthreads();
+    for (int i = threadIdx.x; i < (hi - lo) * C; i += NT_F32) {
+      const int r = lo + i / C, c = i % C, t = t0 + r;
+      st[r * LD + c] = (t >= 0 && t < T) ? xb[(size_t)t * C + c] : 0.f;
+    }
+    for (int u = 0; u < spec.n_unit; ++u) {
+      const int d = spec.dil[br][u];
+      __syncthreads();
+      for (int i = threadIdx.x; i < (hi - lo) * C; i += NT_F32) {
+        const int r = lo + i / C, c = i % C;
+        h[r * LD + c] = leaky(st[r * LD + c]);
+      }
+      __syncthreads();
+      const int r1 = half * d, r2 = half;
+      conv_f32<0>(h, h2, st, w + woff, bias + boff, k, d, lo + r1, hi - r1, t0, T);
+      woff += (size_t)k * C * C;
+      boff += C;
+      __syncthreads();
+      conv_f32<1>(h2, h2, st, w + woff, bias + boff, k, 1, lo + r1 + r2, hi - r1 - r2, t0, T);
+      woff += (size_t)k * C * C;
+      boff += C;
+      lo += r1 + r2;
+      hi -= r1 + r2;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * NT_F32;
+      acc[j] += st[(HALO + i / C) * LD + i % C];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = threadIdx.x + j * NT_F32, t = blockIdx.x * TT + i / C;
+    if (t < T) out[((size_t)b * T + t) * C + i % C] = acc[j] / spec.n_br;
+  }
+}
+
+// --------------------------------------------------------------- bf16 path
+
+constexpr int NCW = 16;              // consumer warps: one 16-row slab of the window each
+constexpr int NCT = NCW * 32;        // consumer threads
+constexpr int NT_BF16 = NCT + 32;    // and the producer warp
+constexpr int LDB = C + 8;           // bf16 smem row (144 B): ldmatrix rows hit distinct banks
+constexpr int HROWS = WIN + 16;      // conv-input rows: the last slab may read past WIN
+constexpr int NSLOT = 4;             // taps in the weight ring
+constexpr int TAP = C * C;           // bf16 per tap: 8 KB
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the consumers' barrier (named barrier 1): the producer warp never joins it
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCT) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+// one bulk copy (the tensor memory accelerator) global → shared, completing
+// its bytes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
@@ -146,24 +242,22 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Copy one tap's weight [64 cout][64 cin] bf16 from global into smem rows of
-// LDB, 16 B per cp.async.
-__device__ __forceinline__ void stage_tap(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  constexpr int NT = Cfg<__nv_bfloat16>::NT;
-  for (int i = threadIdx.x; i < C * C / 8; i += NT) {
-    const int row = i / (C / 8), chunk = i % (C / 8);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_addr(dst + row * LDB + chunk * 8)), "l"(src + row * C + chunk * 8));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+// The weight ring: the producer streams taps in the order the consumers
+// take them; `it` counts the taps a consumer has taken (the same in every
+// consumer thread), which names the slot and its barriers' phase.
+struct Ring {
+  const __nv_bfloat16* slots;   // NSLOT × TAP
+  uint64_t* full;               // NSLOT: the tap's bytes have landed
+  uint64_t* empty;              // NSLOT: every consumer warp is done with it
+};
 
-// The same conv on the tensor cores: bf16 src [rows][LDB], w [k][cout][cin]
-// in global memory, staged tap by tap through wbuf (2 × [64][LDB]).
+// Window rows [lo, hi) of y = bias + Σ_tap Σ_ci src[r + (tap − k/2)·d][ci]·w[tap][ci][:]
+// on the tensor cores: src [rows][LDB] bf16; the k taps come through the
+// ring.  MODE 0: hdst = leaky(y·valid);  MODE 1: st += y·valid.
 template <int MODE>
 __device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* hdst, float* st,
-                          const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-                          int k, int d, int lo, int hi, int t0, int T, __nv_bfloat16* wbuf) {
+                          const Ring& ring, uint32_t& it, const float* __restrict__ bias, int k,
+                          int d, int lo, int hi, int t0, int T) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int half = (k - 1) / 2;
@@ -175,18 +269,17 @@ __device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* hdst, float* 
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
 
-  // ldmatrix row addresses: A rows (lane & 15), cin half (lane >> 4);
-  // B: cout row (lane & 7) of n-tile pair member (lane >> 4), cin half ((lane >> 3) & 1)
+  // ldmatrix row addresses: A rows (lane & 15), cin half (lane >> 4); B:
+  // lanes 8q..8q+7 give the rows of core matrix q: n-tile (lane >> 4) of
+  // the pair, cin half ((lane >> 3) & 1), cout row (lane & 7)
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int b_row = (lane >> 4) * 8 + (lane & 7), b_col = ((lane >> 3) & 1) * 8;
+  const int b_j = lane >> 4, b_c = (lane >> 3) & 1, b_n = lane & 7;
 
-  stage_tap(wbuf, w);
-  for (int tap = 0; tap < k; ++tap) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-    if (tap + 1 < k) stage_tap(wbuf + ((tap + 1) & 1) * C * LDB, w + (size_t)(tap + 1) * C * C);
+  for (int tap = 0; tap < k; ++tap, ++it) {
+    const int slot = it % NSLOT;
+    mbar_wait(ring.full + slot, (it / NSLOT) & 1);
     if (active) {
-      const __nv_bfloat16* wt = wbuf + (tap & 1) * C * LDB;
+      const __nv_bfloat16* wt = ring.slots + slot * TAP;
       const __nv_bfloat16* arow = src + (r0 + (tap - half) * d + a_row) * LDB + a_col;
 #pragma unroll
       for (int kc = 0; kc < C / 16; ++kc) {
@@ -194,13 +287,15 @@ __device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* hdst, float* 
         ldmatrix_x4(a, arow + kc * 16);
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          ldmatrix_x4(b, wt + (np * 16 + b_row) * LDB + kc * 16 + b_col);
-          mma_bf16(acc[2 * np], a, b[0], b[1]);
-          mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+          uint32_t bf[4];
+          ldmatrix_x4(bf, wt + ((2 * np + b_j) * 8 + 2 * kc + b_c) * 64 + b_n * 8);
+          mma_bf16(acc[2 * np], a, bf[0], bf[1]);
+          mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty + slot);
   }
   if (!active) return;
 #pragma unroll
@@ -226,108 +321,118 @@ __device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* hdst, float* 
   }
 }
 
-template <int MODE>
-__device__ __forceinline__ void conv(const float* src, float* hdst, float* st, const float* w,
-                                     const float* bias, int k, int d, int lo, int hi, int t0,
-                                     int T, float*) {
-  conv_f32<MODE>(src, hdst, st, w, bias, k, d, lo, hi, t0, T);
-}
-template <int MODE>
-__device__ __forceinline__ void conv(const __nv_bfloat16* src, __nv_bfloat16* hdst, float* st,
-                                     const __nv_bfloat16* w, const float* bias, int k, int d,
-                                     int lo, int hi, int t0, int T, __nv_bfloat16* wbuf) {
-  conv_bf16<MODE>(src, hdst, st, w, bias, k, d, lo, hi, t0, T, wbuf);
-}
-
-template <typename TIO>
-__global__ void __launch_bounds__(Cfg<TIO>::NT, 1)
-mrf_stage_kernel(const TIO* __restrict__ x, const TIO* __restrict__ w,
-                 const float* __restrict__ bias, TIO* __restrict__ out, int T, MrfSpec spec) {
-  constexpr int NT = Cfg<TIO>::NT, LDH = Cfg<TIO>::LDH;
-  constexpr int PER = TT * C / NT;  // centre elements per thread
+__global__ void __launch_bounds__(NT_BF16, 1)
+mrf_stage_kernel_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                      const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int T,
+                      MrfSpec spec) {
+  constexpr int PER = TT * C / NCT;  // centre elements per consumer thread
   extern __shared__ __align__(128) unsigned char smem[];
-  float* st = reinterpret_cast<float*>(smem);          // branch state, f32
-  TIO* h = reinterpret_cast<TIO*>(st + WIN * LD);      // first conv input
-  TIO* h2 = h + HROWS * LDH;                           // second conv input
-  TIO* wbuf = h2 + HROWS * LDH;                        // staged tap weights (bf16 only)
+  float* st = reinterpret_cast<float*>(smem);                             // branch state, f32
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(st + WIN * LD);     // first conv input
+  __nv_bfloat16* h2 = h + HROWS * LDB;                                    // second conv input
+  __nv_bfloat16* slots = h2 + HROWS * LDB;                                // the weight ring
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slots + NSLOT * TAP);      // full, then empty
+  const Ring ring{slots, bars, bars + NSLOT};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(ring.full + s, 1);
+      mbar_init(ring.empty + s, NCW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NCT) {
+    // the producer warp: every tap of every conv, NSLOT ahead of the slowest consumer warp
+    if (threadIdx.x == NCT) {
+      int taps = 0;
+      for (int br = 0; br < spec.n_br; ++br) taps += 2 * spec.n_unit * spec.k[br];
+      for (int i = 0; i < taps; ++i) {
+        const int slot = i % NSLOT;
+        if (i >= NSLOT) mbar_wait(ring.empty + slot, ((i / NSLOT) - 1) & 1);
+        bulk_load(slots + slot * TAP, w + (size_t)i * TAP, TAP * sizeof(__nv_bfloat16),
+                  ring.full + slot);
+      }
+    }
+    return;
+  }
+
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TT - HALO;  // global sample of window row 0
-  const TIO* xb = x + (size_t)b * T * C;
+  const __nv_bfloat16* xb = x + (size_t)b * T * C;
+  uint32_t it = 0;
 
   float acc[PER];
 #pragma unroll
   for (int j = 0; j < PER; ++j) acc[j] = 0.f;
 
-  size_t woff = 0, boff = 0;
+  size_t boff = 0;
   for (int br = 0; br < spec.n_br; ++br) {
     const int k = spec.k[br], half = (k - 1) / 2;
-    int radius = 0;
-    for (int u = 0; u < spec.n_unit; ++u) radius += half * spec.dil[br][u] + half;
+    const int radius = receptive_radius(spec, br);
     int lo = HALO - radius, hi = HALO + TT + radius;
-    __syncthreads();
-    for (int i = threadIdx.x; i < (hi - lo) * C; i += NT) {
+    consumer_sync();
+    for (int i = threadIdx.x; i < (hi - lo) * C; i += NCT) {
       const int r = lo + i / C, c = i % C, t = t0 + r;
-      st[r * LD + c] = (t >= 0 && t < T) ? to_f(xb[(size_t)t * C + c]) : 0.f;
+      st[r * LD + c] = (t >= 0 && t < T) ? __bfloat162float(xb[(size_t)t * C + c]) : 0.f;
     }
     for (int u = 0; u < spec.n_unit; ++u) {
       const int d = spec.dil[br][u];
-      __syncthreads();
-      for (int i = threadIdx.x; i < (hi - lo) * C; i += NT) {
+      consumer_sync();
+      for (int i = threadIdx.x; i < (hi - lo) * C; i += NCT) {
         const int r = lo + i / C, c = i % C;
-        h[r * LDH + c] = from_f<TIO>(leaky(st[r * LD + c]));
+        h[r * LDB + c] = __float2bfloat16(leaky(st[r * LD + c]));
       }
-      __syncthreads();
+      consumer_sync();
       const int r1 = half * d, r2 = half;
-      conv<0>(h, h2, st, w + woff, bias + boff, k, d, lo + r1, hi - r1, t0, T, wbuf);
-      woff += (size_t)k * C * C;
+      conv_bf16<0>(h, h2, st, ring, it, bias + boff, k, d, lo + r1, hi - r1, t0, T);
       boff += C;
-      __syncthreads();
-      conv<1>(h2, h2, st, w + woff, bias + boff, k, 1, lo + r1 + r2, hi - r1 - r2, t0, T,
-              wbuf);
-      woff += (size_t)k * C * C;
+      consumer_sync();
+      conv_bf16<1>(h2, h2, st, ring, it, bias + boff, k, 1, lo + r1 + r2, hi - r1 - r2, t0, T);
       boff += C;
       lo += r1 + r2;
       hi -= r1 + r2;
     }
-    __syncthreads();
+    consumer_sync();
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * NT;
+      const int i = threadIdx.x + j * NCT;
       acc[j] += st[(HALO + i / C) * LD + i % C];
     }
   }
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
-    const int i = threadIdx.x + j * NT, t = blockIdx.x * TT + i / C;
-    if (t < T) out[((size_t)b * T + t) * C + i % C] = from_f<TIO>(acc[j] / spec.n_br);
+    const int i = threadIdx.x + j * NCT, t = blockIdx.x * TT + i / C;
+    if (t < T) out[((size_t)b * T + t) * C + i % C] = __float2bfloat16(acc[j] / spec.n_br);
   }
 }
 
-template <typename TIO>
-int launch(const void* x, const void* w, const float* bias, void* out, int B, int T,
-           const MrfSpec& spec, cudaStream_t stream) {
-  constexpr int LDH = Cfg<TIO>::LDH;
-  const size_t wbuf = sizeof(TIO) == 2 ? (size_t)2 * C * LDB * sizeof(TIO) : 0;
-  const size_t smem =
-      (size_t)WIN * LD * sizeof(float) + 2 * (size_t)HROWS * LDH * sizeof(TIO) + wbuf;
-  cudaError_t err = cudaFuncSetAttribute(mrf_stage_kernel<TIO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+constexpr size_t SMEM_F32 = (size_t)3 * WIN * LD * sizeof(float);
+constexpr size_t SMEM_BF16 = (size_t)WIN * LD * sizeof(float) +
+                             (size_t)2 * HROWS * LDB * sizeof(__nv_bfloat16) +
+                             (size_t)NSLOT * TAP * sizeof(__nv_bfloat16) +
+                             2 * NSLOT * sizeof(uint64_t);
+
+template <typename TIO, typename K>
+int launch(K kernel, int threads, size_t smem, const void* x, const void* w, const float* bias,
+           void* out, int B, int T, const MrfSpec& spec, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + TT - 1) / TT, B);
-  mrf_stage_kernel<TIO><<<grid, Cfg<TIO>::NT, smem, stream>>>(
-      static_cast<const TIO*>(x), static_cast<const TIO*>(w), bias, static_cast<TIO*>(out), T,
-      spec);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const TIO*>(x), static_cast<const TIO*>(w),
+                                          bias, static_cast<TIO*>(out), T, spec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, out: [B, T, 64] in the I/O dtype (is_bf16: bf16, else f32), contiguous.
-// w: per branch, per unit, conv1 then conv2, each [k][64][64] in the I/O
-// dtype, laid out (tap, cin, cout) for f32 and (tap, cout, cin) for bf16;
-// bias: f32, same order, [64] each.  ks: [n_br]; dils: [n_br · n_unit].
-// n_br, n_unit ≤ 4; every branch's receptive radius ≤ 64.  Returns
-// cudaGetLastError().
+// w: prepare_weights' layout in the I/O dtype — per branch, per unit, conv1
+// then conv2, each tap [cout/8][cin/8][8][8] for bf16 and [cin][cout] for
+// f32; bias: f32, [convs][64].  ks: [n_br]; dils: [n_br · n_unit].  n_br,
+// n_unit ≤ 4; every branch's receptive radius ≤ 64.  Returns the launch's
+// cudaError_t.
 extern "C" int mrf_stage_launch(const void* x, const void* w, const float* bias, void* out,
                                 int B, int T, int n_br, int n_unit, const int* ks,
                                 const int* dils, int is_bf16, void* stream) {
@@ -345,6 +450,8 @@ extern "C" int mrf_stage_launch(const void* x, const void* w, const float* bias,
     if (ks[br] % 2 == 0 || radius > HALO) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(x, w, bias, out, B, T, spec, s)
-                 : launch<float>(x, w, bias, out, B, T, spec, s);
+  return is_bf16 ? launch<__nv_bfloat16>(mrf_stage_kernel_bf16, NT_BF16, SMEM_BF16, x, w, bias,
+                                         out, B, T, spec, s)
+                 : launch<float>(mrf_stage_kernel_f32, NT_F32, SMEM_F32, x, w, bias, out, B, T,
+                                 spec, s);
 }

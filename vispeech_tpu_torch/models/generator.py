@@ -9,7 +9,9 @@ fold = 128 // C goes through kernel D's wrapper (``ops/kernels/
 mrf_stage_folded.py``, the polyphase-folded stage), the 64-channel stage
 through kernel C's (``ops/kernels/mrf_stage.py``) — each the kernel on a
 CUDA tensor, its plain version on a CPU tensor; the other stages run the
-plain ResBlock1.  Training passes ``fused=False``: C and D have no
+plain ResBlock1.  With frozen weight norms the generator prepares C's and
+D's weights once and keeps them (``_kernel_weights``), so a serving request
+packs no weights.  Training passes ``fused=False``: C and D have no
 backward, and every stage runs the plain, differentiable ResBlock1 (the
 JAX trainer's folded MRF computes the same math).  ``tail_f32`` runs the
 last leaky ReLU, conv_post and tanh in f32 whatever the body's dtype.
@@ -55,7 +57,7 @@ class Generator(nn.Module):
             for rk, rd in zip(self.kernel_sizes, self.dilations):
                 self.resblocks.append(block(ch, rk, rd))
         self.conv_post = Conv1d(self.channels[-1], 1, 7, padding=3, bias=False)
-        self._folded_cache = {}   # stage → (key, frozen tensors, kernel D's weights)
+        self._kernel_cache = {}   # stage → (key, frozen tensors, kernel C's or D's weights)
 
     def forward(self, x: torch.Tensor, g: Optional[torch.Tensor] = None, fused: bool = True,
                 tail_f32: bool = False) -> torch.Tensor:
@@ -69,15 +71,17 @@ class Generator(nn.Module):
             blocks = self.resblocks[i * n:(i + 1) * n]
             fold = max(1, 128 // ch)
             if fused and self.fused_mrf and ch < KERNEL_CHANNELS and x.shape[-1] % fold == 0:
-                prepared = self._folded_weights(i, blocks, fold, x)
+                prepared = self._kernel_weights(i, blocks, x, fold)
                 packed = None if prepared is not None else [b.packed() for b in blocks]
                 y = mrf_stage_folded.mrf_stack_folded(x.transpose(1, 2), packed,
                                                       self.kernel_sizes, self.dilations, fold,
                                                       prepared)
                 x = y.transpose(1, 2)
             elif fused and self.fused_mrf and ch == KERNEL_CHANNELS:
-                y = mrf_stage.mrf_stack(x.transpose(1, 2), [b.packed() for b in blocks],
-                                        self.kernel_sizes, self.dilations)
+                prepared = self._kernel_weights(i, blocks, x)
+                packed = None if prepared is not None else [b.packed() for b in blocks]
+                y = mrf_stage.mrf_stack(x.transpose(1, 2), packed, self.kernel_sizes,
+                                        self.dilations, prepared)
                 x = y.transpose(1, 2)
             else:
                 acc = None
@@ -90,22 +94,33 @@ class Generator(nn.Module):
         x = self.conv_post.forward_cf(leaky_relu(x, 0.01))
         return torch.tanh(x).transpose(1, 2)
 
-    def _folded_weights(self, stage: int, blocks, fold: int, x: torch.Tensor):
-        """Kernel D's prepared weights for a stage on the card whose weight
-        norms are frozen (``freeze_weight_norm``, as serving does), kept
-        while those frozen tensors stay the same; None otherwise (CPU, or
-        weights that change: the wrapper folds them at each call)."""
+    def _kernel_weights(self, stage: int, blocks, x: torch.Tensor, fold: Optional[int] = None):
+        """Kernel C's (``fold`` None) or D's prepared weights for a stage on
+        the card whose weight norms are frozen (``freeze_weight_norm``, as
+        serving does), kept while those frozen tensors stay the same and
+        unchanged in place; None otherwise (CPU, or weights that change:
+        the wrapper prepares them at each call)."""
         convs = [c for b in blocks for c in (*b.convs1, *b.convs2)]
-        if x.device.type == "cpu" or any(c.folded is None for c in convs):
+        if not _on_card(x) or any(c.folded is None for c in convs):
             return None
         tensors = [t for c in convs for t in (c.folded, c.bias)]
         key = (x.dtype, fold, tuple((id(t), t._version) for t in tensors))
-        cached = self._folded_cache.get(stage)
+        cached = self._kernel_cache.get(stage)
         if cached is None or cached[0] != key:
             with torch.no_grad():
-                prepared = mrf_stage_folded.prepare_weights(
-                    [b.packed() for b in blocks], self.kernel_sizes, self.dilations, fold,
-                    x.shape[1], x.dtype)
+                packed = [b.packed() for b in blocks]
+                if fold is None:
+                    prepared = mrf_stage.prepare_weights(packed, self.kernel_sizes,
+                                                         self.dilations, x.dtype)
+                else:
+                    prepared = mrf_stage_folded.prepare_weights(
+                        packed, self.kernel_sizes, self.dilations, fold, x.shape[1], x.dtype)
             # the tensors stay referenced, so their ids cannot be reused
-            cached = self._folded_cache[stage] = (key, tensors, prepared)
+            cached = self._kernel_cache[stage] = (key, tensors, prepared)
         return cached[2]
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` runs the kernels (a CPU tensor runs the plain versions,
+    which take the weights as they are)."""
+    return x.device.type != "cpu"
