@@ -186,12 +186,12 @@ mrf_stage_kernel_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 // --------------------------------------------------------------- bf16 path
 
-constexpr int NCW = 16;              // consumer warps: one 16-row slab of the window each
+constexpr int NWG = 4;               // consumer warpgroups: one 64-row M tile of a conv each
+constexpr int NCW = NWG * 4;         // consumer warps
 constexpr int NCT = NCW * 32;        // consumer threads
 constexpr int NT_BF16 = NCT + 32;    // and the producer warp
-constexpr int LDB = C + 8;           // bf16 smem row (144 B): ldmatrix rows hit distinct banks
-constexpr int HROWS = WIN + 16;      // conv-input rows: the last slab may read past WIN
-constexpr int NSLOT = 4;             // taps in the weight ring
+constexpr int LDS = C + 8;           // f32 state row: a half-warp's float2s hit distinct banks
+constexpr int NSLOT = 6;             // taps in the weight ring
 constexpr int TAP = C * C;           // bf16 per tap: 8 KB
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -201,6 +201,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // the consumers' barrier (named barrier 1): the producer warp never joins it
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NCT) : "memory");
+}
+
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -227,19 +232,37 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+// shared-memory matrix descriptor, K-major core matrices (8 rows × 16
+// bytes, contiguous) without swizzle: lbo bytes between core matrices
+// along K, sbo along M or N
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
+// the compiler keeps the accumulators' reads and writes on their side of
+// the asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 rows × 64 columns, f32) += A (64 rows × 16 k, bf16) · B (16 k × 64
+// columns, bf16), both from shared memory
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // The weight ring: the producer streams taps in the order the consumers
@@ -251,86 +274,108 @@ struct Ring {
   uint64_t* empty;              // NSLOT: every consumer warp is done with it
 };
 
-// Window rows [lo, hi) of y = bias + Σ_tap Σ_ci src[r + (tap − k/2)·d][ci]·w[tap][ci][:]
-// on the tensor cores: src [rows][LDB] bf16; the k taps come through the
-// ring.  MODE 0: hdst = leaky(y·valid);  MODE 1: st += y·valid.
+// A conv input or output, bf16, as wgmma reads its A operand: [C/8 column
+// chunks][WIN rows][8 columns], so the 8 rows × 8 columns from any row on
+// are one contiguous core matrix whatever the tap's row shift
+__device__ __forceinline__ int hidx(int r, int c) { return ((c >> 3) * WIN + r) * 8 + (c & 7); }
+
+// One conv over window rows [lo, hi): y = bias + Σ_tap Σ_ci src[r + (tap −
+// k/2)·d][ci]·w[tap][ci][:], f32 accumulators in registers.  Warpgroup wg
+// takes the conv's M tile wg (64 rows; the last tile ends at hi and
+// overlaps the one before, whose rows it does not write); the taps come
+// through the ring, each as 4 wgmma k-steps, one commit group per tap with
+// the tap before still in flight.  Epilogue, rows [wlo, whi) of the tile:
+//   MODE 0: dst = leaky(y·valid)
+//   MODE 1: st += y·valid; dst = leaky(st) (the next unit's input) when
+//           NEXT; osum += st on the branch's last conv (the window centre)
 template <int MODE>
-__device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* hdst, float* st,
-                          const Ring& ring, uint32_t& it, const float* __restrict__ bias, int k,
-                          int d, int lo, int hi, int t0, int T) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* dst, float* st,
+                          float (&osum)[32], const Ring& ring, uint32_t& it,
+                          const float* __restrict__ bias, int k, int d, int lo, int hi, int t0,
+                          int T, bool next) {
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int half = (k - 1) / 2;
-  const int r0 = lo + warp * 16;
-  const bool active = r0 < hi;
-  float acc[8][4];
+  const int ntiles = (hi - lo + 63) >> 6;
+  const bool active = wg < ntiles;
+  const int start = wg < ntiles - 1 ? lo + 64 * wg : hi - 64;
+  float acc[32];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-
-  // ldmatrix row addresses: A rows (lane & 15), cin half (lane >> 4); B:
-  // lanes 8q..8q+7 give the rows of core matrix q: n-tile (lane >> 4) of
-  // the pair, cin half ((lane >> 3) & 1), cout row (lane & 7)
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int b_j = lane >> 4, b_c = (lane >> 3) & 1, b_n = lane & 7;
-
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  if (active) {
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  }
+  int prev = -1;
   for (int tap = 0; tap < k; ++tap, ++it) {
     const int slot = it % NSLOT;
     mbar_wait(ring.full + slot, (it / NSLOT) & 1);
     if (active) {
-      const __nv_bfloat16* wt = ring.slots + slot * TAP;
-      const __nv_bfloat16* arow = src + (r0 + (tap - half) * d + a_row) * LDB + a_col;
+      const __nv_bfloat16* a = src + (start + (tap - half) * d) * 8;
+      const __nv_bfloat16* b = ring.slots + slot * TAP;
 #pragma unroll
-      for (int kc = 0; kc < C / 16; ++kc) {
-        uint32_t a[4];
-        ldmatrix_x4(a, arow + kc * 16);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bf[4];
-          ldmatrix_x4(bf, wt + ((2 * np + b_j) * 8 + 2 * kc + b_c) * 64 + b_n * 8);
-          mma_bf16(acc[2 * np], a, bf[0], bf[1]);
-          mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
-        }
-      }
+      for (int ks = 0; ks < C / 16; ++ks)
+        wgmma_m64n64k16(acc, smem_desc(a + 2 * ks * WIN * 8, WIN * 16, 128),
+                        smem_desc(b + 2 * ks * 64, 128, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // the tap before is done with its slot once at most this tap's group is pending
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(ring.empty + slot);
+    if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev);
+    prev = slot;
   }
+  if (active) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+  }
+  if (lane == 0) mbar_arrive(ring.empty + prev);
   if (!active) return;
+
+  const int wlo = lo + 64 * wg, whi = min(wlo + 64, hi);
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * tq;
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * tq;
     const float b0 = bias[c], b1 = bias[c + 1];
 #pragma unroll
-    for (int hrow = 0; hrow < 2; ++hrow) {
-      const int r = r0 + g + 8 * hrow, t = t0 + r;
-      if (r < hi) {
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = start + 16 * warp + g + 8 * hr, t = t0 + r;
+      if (r >= wlo && r < whi) {
         const float valid = (t >= 0 && t < T) ? 1.f : 0.f;
-        const float y0 = (acc[n][2 * hrow] + b0) * valid;
-        const float y1 = (acc[n][2 * hrow + 1] + b1) * valid;
+        float y0 = (acc[4 * j + 2 * hr] + b0) * valid;
+        float y1 = (acc[4 * j + 2 * hr + 1] + b1) * valid;
         if (MODE == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(hdst + r * LDB + c) =
+          *reinterpret_cast<__nv_bfloat162*>(dst + hidx(r, c)) =
               __floats2bfloat162_rn(leaky(y0), leaky(y1));
         } else {
-          st[r * LD + c] += y0;
-          st[r * LD + c + 1] += y1;
+          float2* sp = reinterpret_cast<float2*>(st + r * LDS + c);
+          const float2 s = *sp;
+          y0 += s.x;
+          y1 += s.y;
+          if (next) {
+            *sp = make_float2(y0, y1);
+            *reinterpret_cast<__nv_bfloat162*>(dst + hidx(r, c)) =
+                __floats2bfloat162_rn(leaky(y0), leaky(y1));
+          } else {
+            // the branch's last conv covers exactly the centre: tiles 0 and 1
+            osum[4 * j + 2 * hr] += y0;
+            osum[4 * j + 2 * hr + 1] += y1;
+          }
         }
       }
     }
   }
+  fence_async_smem();
 }
 
 __global__ void __launch_bounds__(NT_BF16, 1)
 mrf_stage_kernel_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                       const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int T,
                       MrfSpec spec) {
-  constexpr int PER = TT * C / NCT;  // centre elements per consumer thread
   extern __shared__ __align__(128) unsigned char smem[];
   float* st = reinterpret_cast<float*>(smem);                             // branch state, f32
-  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(st + WIN * LD);     // first conv input
-  __nv_bfloat16* h2 = h + HROWS * LDB;                                    // second conv input
-  __nv_bfloat16* slots = h2 + HROWS * LDB;                                // the weight ring
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(st + WIN * LDS);    // first conv input
+  __nv_bfloat16* h2 = h + WIN * C;                                        // second conv input
+  __nv_bfloat16* slots = h2 + WIN * C;                                    // the weight ring
   uint64_t* bars = reinterpret_cast<uint64_t*>(slots + NSLOT * TAP);      // full, then empty
   const Ring ring{slots, bars, bars + NSLOT};
   if (threadIdx.x == 0) {
@@ -361,57 +406,76 @@ mrf_stage_kernel_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   const int t0 = blockIdx.x * TT - HALO;  // global sample of window row 0
   const __nv_bfloat16* xb = x + (size_t)b * T * C;
   uint32_t it = 0;
-
-  float acc[PER];
+  float osum[32];   // warpgroups 0 and 1: the branch sum of the window centre's rows
 #pragma unroll
-  for (int j = 0; j < PER; ++j) acc[j] = 0.f;
+  for (int i = 0; i < 32; ++i) osum[i] = 0.f;
 
   size_t boff = 0;
   for (int br = 0; br < spec.n_br; ++br) {
     const int k = spec.k[br], half = (k - 1) / 2;
     const int radius = receptive_radius(spec, br);
     int lo = HALO - radius, hi = HALO + TT + radius;
+    // state = x and the first conv's input leaky(x), 8 columns a thread
     consumer_sync();
-    for (int i = threadIdx.x; i < (hi - lo) * C; i += NCT) {
-      const int r = lo + i / C, c = i % C, t = t0 + r;
-      st[r * LD + c] = (t >= 0 && t < T) ? __bfloat162float(xb[(size_t)t * C + c]) : 0.f;
+    for (int i = threadIdx.x; i < (hi - lo) * (C / 8); i += NCT) {
+      const int r = lo + i / (C / 8), c = (i % (C / 8)) * 8, t = t0 + r;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (t >= 0 && t < T) raw = *reinterpret_cast<const uint4*>(xb + (size_t)t * C + c);
+      const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float v[8];
+      uint4 hv;
+      __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(&hv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 f = __bfloat1622float2(xv[q]);
+        v[2 * q] = f.x;
+        v[2 * q + 1] = f.y;
+        hp[q] = __floats2bfloat162_rn(leaky(f.x), leaky(f.y));
+      }
+      float4* sp = reinterpret_cast<float4*>(st + r * LDS + c);
+      sp[0] = make_float4(v[0], v[1], v[2], v[3]);
+      sp[1] = make_float4(v[4], v[5], v[6], v[7]);
+      *reinterpret_cast<uint4*>(h + hidx(r, c)) = hv;
     }
+    fence_async_smem();
     for (int u = 0; u < spec.n_unit; ++u) {
       const int d = spec.dil[br][u];
-      consumer_sync();
-      for (int i = threadIdx.x; i < (hi - lo) * C; i += NCT) {
-        const int r = lo + i / C, c = i % C;
-        h[r * LDB + c] = __float2bfloat16(leaky(st[r * LD + c]));
-      }
-      consumer_sync();
       const int r1 = half * d, r2 = half;
-      conv_bf16<0>(h, h2, st, ring, it, bias + boff, k, d, lo + r1, hi - r1, t0, T);
+      consumer_sync();
+      conv_bf16<0>(h, h2, st, osum, ring, it, bias + boff, k, d, lo + r1, hi - r1, t0, T,
+                   true);
       boff += C;
       consumer_sync();
-      conv_bf16<1>(h2, h2, st, ring, it, bias + boff, k, 1, lo + r1 + r2, hi - r1 - r2, t0, T);
+      conv_bf16<1>(h2, h, st, osum, ring, it, bias + boff, k, 1, lo + r1 + r2, hi - r1 - r2,
+                   t0, T, u + 1 < spec.n_unit);
       boff += C;
       lo += r1 + r2;
       hi -= r1 + r2;
     }
-    consumer_sync();
+  }
+  // warpgroups 0 and 1 own the centre rows HALO + [0, 64) and HALO + [64, 128)
+  const int wg = threadIdx.x >> 7;
+  if (wg >= 2) return;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = threadIdx.x + j * NCT;
-      acc[j] += st[(HALO + i / C) * LD + i % C];
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = blockIdx.x * TT + 64 * wg + 16 * warp + g + 8 * hr;
+      if (t < T)
+        *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * T + t) * C + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(osum[4 * j + 2 * hr] / spec.n_br,
+                                  osum[4 * j + 2 * hr + 1] / spec.n_br);
     }
-  }
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int i = threadIdx.x + j * NCT, t = blockIdx.x * TT + i / C;
-    if (t < T) out[((size_t)b * T + t) * C + i % C] = __float2bfloat16(acc[j] / spec.n_br);
-  }
 }
 
-constexpr size_t SMEM_F32 = (size_t)3 * WIN * LD * sizeof(float);
-constexpr size_t SMEM_BF16 = (size_t)WIN * LD * sizeof(float) +
-                             (size_t)2 * HROWS * LDB * sizeof(__nv_bfloat16) +
+constexpr size_t SMEM_BF16 = (size_t)WIN * LDS * sizeof(float) +
+                             (size_t)2 * WIN * C * sizeof(__nv_bfloat16) +
                              (size_t)NSLOT * TAP * sizeof(__nv_bfloat16) +
                              2 * NSLOT * sizeof(uint64_t);
+
+constexpr size_t SMEM_F32 = (size_t)3 * WIN * LD * sizeof(float);
 
 template <typename TIO, typename K>
 int launch(K kernel, int threads, size_t smem, const void* x, const void* w, const float* bias,
