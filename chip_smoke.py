@@ -13,10 +13,13 @@ and check them.
    and in its per-layer mode at T = 1400, L = 16 (the posterior encoder),
    its weights prepared once as serving calls it and, timed beside, at
    the call; each A and B line prints the grid (CTAs, cluster size, key
-   splits or window).  C at a 1400-frame bucket (358 400 samples) in bf16
-   and f32, D at the same bucket's C = 32 stage (716 800 samples, fold 4)
-   in bf16 and f32, timed beside the cuDNN ResBlock1 stage it replaces
-   (unfolded, bf16).
+   splits or window).  C at the C = 64 stage of a 128- and a 1400-frame
+   bucket (32 768 and 358 400 samples, batch 1) in bf16 and f32, its
+   weights prepared once as the serving generator keeps them, with wall
+   and device time, the grid, the bound and the plain version's time; D at
+   the 1400-frame bucket's C = 32 stage (716 800 samples, fold 4) in bf16
+   and f32, timed beside the cuDNN ResBlock1 stage it replaces (unfolded,
+   bf16).
 2b. E and F, forward and backward with every gradient, at the training
    shapes (B = 12, T = 1024): E with L = 16 and a speaker (enc_q) and
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
@@ -29,7 +32,9 @@ and check them.
    and the audio: finite, frames × hop long, and the whole path with the
    kernels in f32 against the plain f32 path on the CPU.  The whole
    serving run once more under torch.profiler: each serving kernel's
-   summed device time over it.  Two of the requests run again under
+   summed device time over it, and the (B, T) of each C launch.  C is
+   held and timed once more at the largest batched plan of the run's
+   ``synthesize_batch``.  Two of the requests run again under
    torch.profiler: device time by kernel and the device's busy share of
    the wall time.
 3d. Voice conversion of the long request's audio (1400 frames) through
@@ -56,9 +61,11 @@ package is not beside this file, or when any phase fails.
 
     python3 chip_smoke.py --kernel-times
 
-prints only kernels A and B's times at phase 2's shapes, as one JSON line,
-for the checkout this file sits in: a copy of this file in another checkout
-of the port times that one, so two versions compare within one run.
+prints only the times of kernels A and B at phase 2's shapes and of C in
+bf16 at ``MRF_TIMED`` (C's kernel alone too, from the profiler), as one
+JSON line, for the checkout this file sits in: a copy of this file in
+another checkout of the port times that one, so two versions compare
+within one run.
 """
 
 from __future__ import annotations

@@ -9,10 +9,10 @@ the CPU.  The kernel itself is held against its plain version on the card
 (``tests/test_torch_cuda.py``).
 
 Tolerances: the prepared weights are the packed ones rounded to the
-prepared dtype, exactly, and the biases the packed f32 ones; the plain stage on them equals the plain stage on
-the packed weights exactly (it rounds each operand to the I/O dtype the
-same way); against the Pallas kernel in interpret mode at C = 64, f32,
-1e-5 (summation order).
+prepared dtype, exactly, and the biases the packed f32 ones; the plain
+stage on them equals the plain stage on the packed weights exactly (it
+rounds each operand to the I/O dtype the same way); against the Pallas
+kernel in interpret mode at C = 64, f32, 1e-5 (summation order).
 """
 
 import jax

@@ -50,6 +50,8 @@ struct MrfSpec {
   int n_br, n_unit;
   int k[MAXB];
   int dil[MAXB][MAXU];
+  float inv_br;   // 1 / n_br: a division is a call, and ptxas serializes every wgmma of a
+                  // kernel that makes one
 };
 
 __device__ __forceinline__ int receptive_radius(const MrfSpec& spec, int br) {
@@ -211,9 +213,13 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
 }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-               ::"r"(smem_addr(bar)) : "memory");
+// an arrival by the threads where `pred` holds, predicated inside the asm:
+// a branch around it would be a divergent path between two wgmma, and
+// ptxas serializes every wgmma of a kernel that has one
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\n.reg .b64 state;\nsetp.ne.b32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               ::"r"(smem_addr(bar)), "r"((int)pred) : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -289,23 +295,26 @@ __device__ __forceinline__ int hidx(int r, int c) { return ((c >> 3) * WIN + r) 
 //   MODE 1: st += y·valid; dst = leaky(st) (the next unit's input) when
 //           NEXT; osum += st on the branch's last conv (the window centre)
 template <int MODE>
-__device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* dst, float* st,
-                          float (&osum)[32], const Ring& ring, uint32_t& it,
-                          const float* __restrict__ bias, int k, int d, int lo, int hi, int t0,
-                          int T, bool next) {
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+__device__ __forceinline__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* dst,
+                                          float* st, float (&osum)[32], const Ring& ring,
+                                          uint32_t& it, const float* __restrict__ bias, int k,
+                                          int d, int lo, int hi, int t0, int T, bool next) {
+  // the warpgroup index through a shuffle, so the compiler knows it is the
+  // same in every thread of a warp and the wgmma below sit on no divergent path
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int half = (k - 1) / 2;
   const int ntiles = (hi - lo + 63) >> 6;
   const bool active = wg < ntiles;
   const int start = wg < ntiles - 1 ? lo + 64 * wg : hi - 64;
+  float2 bv[8];   // this thread's bias columns, loaded while the products run
+#pragma unroll
+  for (int j = 0; j < 8; ++j) bv[j] = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * tq);
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  if (active) {
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-  }
+  if (active) fence_acc(acc);
   int prev = -1;
   for (int tap = 0; tap < k; ++tap, ++it) {
     const int slot = it % NSLOT;
@@ -313,6 +322,7 @@ __device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* dst, float* s
     if (active) {
       const __nv_bfloat16* a = src + (start + (tap - half) * d) * 8;
       const __nv_bfloat16* b = ring.slots + slot * TAP;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int ks = 0; ks < C / 16; ++ks)
         wgmma_m64n64k16(acc, smem_desc(a + 2 * ks * WIN * 8, WIN * 16, 128),
@@ -321,21 +331,21 @@ __device__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat16* dst, float* s
       // the tap before is done with its slot once at most this tap's group is pending
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     }
-    if (prev >= 0 && lane == 0) mbar_arrive(ring.empty + prev);
+    mbar_arrive_if(ring.empty + max(prev, 0), prev >= 0 && lane == 0);
     prev = slot;
   }
   if (active) {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc(acc);
   }
-  if (lane == 0) mbar_arrive(ring.empty + prev);
+  mbar_arrive_if(ring.empty + prev, lane == 0);
   if (!active) return;
 
   const int wlo = lo + 64 * wg, whi = min(wlo + 64, hi);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int c = 8 * j + 2 * tq;
-    const float b0 = bias[c], b1 = bias[c + 1];
+    const float b0 = bv[j].x, b1 = bv[j].y;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int r = start + 16 * warp + g + 8 * hr, t = t0 + r;
@@ -387,7 +397,7 @@ mrf_stage_kernel_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   }
   __syncthreads();
 
-  if (threadIdx.x >= NCT) {
+  if (__shfl_sync(0xffffffffu, threadIdx.x >> 5, 0) == NCW) {
     // the producer warp: every tap of every conv, NSLOT ahead of the slowest consumer warp
     if (threadIdx.x == NCT) {
       int taps = 0;
@@ -465,8 +475,8 @@ mrf_stage_kernel_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
       const int t = blockIdx.x * TT + 64 * wg + 16 * warp + g + 8 * hr;
       if (t < T)
         *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * T + t) * C + 8 * j + 2 * tq) =
-            __floats2bfloat162_rn(osum[4 * j + 2 * hr] / spec.n_br,
-                                  osum[4 * j + 2 * hr + 1] / spec.n_br);
+            __floats2bfloat162_rn(osum[4 * j + 2 * hr] * spec.inv_br,
+                                  osum[4 * j + 2 * hr + 1] * spec.inv_br);
     }
 }
 
@@ -504,6 +514,7 @@ extern "C" int mrf_stage_launch(const void* x, const void* w, const float* bias,
   MrfSpec spec{};
   spec.n_br = n_br;
   spec.n_unit = n_unit;
+  spec.inv_br = 1.f / n_br;
   for (int br = 0; br < n_br; ++br) {
     spec.k[br] = ks[br];
     int radius = 0;
