@@ -19,19 +19,37 @@
 // units go.  Convs accumulate in f32, as the TPU kernel does; the output is
 // cast back to the I/O dtype.
 //
-// Bound: 2·k·C² flops per sample per conv, 18 convs: ~1.03 MFLOP per
-// sample, ~370 GFLOP for a 1400-frame bucket (358 400 samples) against
-// 2·T·C·2 bytes of I/O — compute-bound.  bf16: each conv is a GEMM on the
-// tensor cores (mma.sync m16n8k16, f32 accumulate); 16 consumer warps each
-// own a 16-row slab × 64 columns.  The weights arrive prepared
-// (ops/kernels/mrf_stage.py::prepare_weights): every tap of every conv in
-// the order the block uses them, as [cout/8][cin/8][8][8] core matrices of
-// 8 KB.  A producer warp streams them by bulk copies (the tensor memory
-// accelerator) into a ring of NSLOT taps, each slot with a "full" mbarrier
-// (the copy's bytes) and an "empty" one (one arrival per consumer warp), so
-// no block-wide barrier separates the taps; consumers sync among themselves
-// (a named barrier) only around the elementwise passes.  f32: the convs run
-// on the CUDA cores.  The halo costs ~1.35× extra flops.
+// What bounds it: 2·k·C² flops per sample per conv, 18 convs: ~1.03 MFLOP
+// per sample, ~370 GFLOP for a 1400-frame bucket (358 400 samples) against
+// 2·T·C·2 bytes of I/O and 1 MB of weights per block — tensor-core bound,
+// 0.37 ms at the bf16 peak.  The halo makes the 64-row tiles cover 1.58×
+// the centre's rows.
+//
+// What the bf16 design does about it:
+// - Each conv is a GEMM on wgmma m64n64k16 (f32 accumulators in registers):
+//   four consumer warpgroups take one 64-row M tile each.  A is the conv
+//   input shifted by the tap's offset, read from shared memory by
+//   descriptor: the inputs are kept as [C/8][rows][8] column chunks, so the
+//   8 rows from any shift are one contiguous core matrix and no row shift
+//   breaks the layout.  B is the tap's [cout][cin] tile.
+// - The weights arrive prepared (ops/kernels/mrf_stage.py::prepare_weights):
+//   every tap of every conv in the order the block uses them, as
+//   [cout/8][cin/8][8][8] core matrices of 8 KB.  A producer warp streams
+//   them by bulk copies (the tensor memory accelerator) into a ring of
+//   NSLOT taps, each slot with a "full" mbarrier (the copy's bytes) and an
+//   "empty" one (one arrival per consumer warp), so no block-wide barrier
+//   separates the taps.  One commit group per tap, with the tap before
+//   still in flight.
+// - The second conv's epilogue adds into the state and writes the next
+//   unit's input in one pass; the branch sum of the window centre stays in
+//   registers of warpgroups 0 and 1.
+// - ptxas serializes every wgmma of a kernel that calls a function, that
+//   branches divergently between two of them, or that moves their
+//   accumulators: the host passes 1 / n_br (no division), the warpgroup
+//   index goes through a shuffle, the ring's arrivals are predicated inside
+//   their asm, and the accumulators live only on the path of a warpgroup
+//   that has a tile.
+// f32 runs the same tiles on the CUDA cores (only the f32 checks use it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -311,35 +329,42 @@ __device__ __forceinline__ void conv_bf16(const __nv_bfloat16* src, __nv_bfloat1
   float2 bv[8];   // this thread's bias columns, loaded while the products run
 #pragma unroll
   for (int j = 0; j < 8; ++j) bv[j] = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * tq);
+  if (!active) {
+    // no tile of this conv: take the taps through the ring all the same
+    for (int tap = 0; tap < k; ++tap, ++it) {
+      const int slot = it % NSLOT;
+      mbar_wait(ring.full + slot, (it / NSLOT) & 1);
+      mbar_arrive_if(ring.empty + slot, lane == 0);
+    }
+    return;
+  }
+  // the accumulators live on this path only: merged with values from a
+  // path without the wgmma, they would be read by moves between two of them
+  // (and ptxas would serialize every wgmma of the kernel)
   float acc[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  if (active) fence_acc(acc);
+  fence_acc(acc);
   int prev = -1;
   for (int tap = 0; tap < k; ++tap, ++it) {
     const int slot = it % NSLOT;
     mbar_wait(ring.full + slot, (it / NSLOT) & 1);
-    if (active) {
-      const __nv_bfloat16* a = src + (start + (tap - half) * d) * 8;
-      const __nv_bfloat16* b = ring.slots + slot * TAP;
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const __nv_bfloat16* a = src + (start + (tap - half) * d) * 8;
+    const __nv_bfloat16* b = ring.slots + slot * TAP;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ks = 0; ks < C / 16; ++ks)
-        wgmma_m64n64k16(acc, smem_desc(a + 2 * ks * WIN * 8, WIN * 16, 128),
-                        smem_desc(b + 2 * ks * 64, 128, 1024));
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      // the tap before is done with its slot once at most this tap's group is pending
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    }
+    for (int ks = 0; ks < C / 16; ++ks)
+      wgmma_m64n64k16(acc, smem_desc(a + 2 * ks * WIN * 8, WIN * 16, 128),
+                      smem_desc(b + 2 * ks * 64, 128, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the tap before is done with its slot once at most this tap's group is pending
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     mbar_arrive_if(ring.empty + max(prev, 0), prev >= 0 && lane == 0);
     prev = slot;
   }
-  if (active) {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(acc);
-  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
   mbar_arrive_if(ring.empty + prev, lane == 0);
-  if (!active) return;
 
   const int wlo = lo + 64 * wg, whi = min(wlo + 64, hi);
 #pragma unroll

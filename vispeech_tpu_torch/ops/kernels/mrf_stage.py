@@ -2,11 +2,14 @@
 
 Replaces ``vispeech_tpu/ops/pallas/mrf_stage.py::mrf_stack`` (body
 ``_mrf_kernel``, conv ``_conv_cm``, halo ``branch_halo``) with
-``csrc/mrf_stage.cu``: tiles of 128 samples with a 64-sample halo, state in
-shared memory, conv operands in the I/O dtype (bf16 when serving) with f32
-accumulation, every position outside [0, T) re-zeroed after each conv.
-Compute-bound: ~370 GFLOP per launch at a 1400-frame bucket; bf16 convs on
-the tensor cores (mma.sync), f32 convs on the CUDA cores.
+``csrc/mrf_stage.cu``: a block owns ``TILE`` samples of one batch item and
+a ``HALO`` on each side, the branch state in shared memory in f32, conv
+operands in the I/O dtype (bf16 when serving) with f32 accumulation, every
+position outside [0, T) re-zeroed after each conv.  Compute-bound: ~370
+GFLOP per launch at a 1400-frame bucket.  bf16 convs run on wgmma, four
+warpgroups taking a 64-row tile each, the weights streamed tap by tap by
+bulk copies from the layout ``prepare_weights`` makes once (the serving
+generator keeps it); f32 convs run on the CUDA cores.
 """
 
 from __future__ import annotations

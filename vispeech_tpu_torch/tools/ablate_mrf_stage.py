@@ -27,9 +27,10 @@ SHAPES = ((1, 128 * 256), (1, 1400 * 256))
 
 VARIANTS = {
     "full": [],
-    "no wgmma": [("      for (int ks = 0; ks < C / 16; ++ks)\n        wgmma_m64n64k16(",
-                  "      for (int ks = 0; ks < 0; ++ks)\n        wgmma_m64n64k16(")],
-    "no epilogue": [("  if (!active) return;\n\n  const int wlo", "  return;\n\n  const int wlo")],
+    "no wgmma": [("    for (int ks = 0; ks < C / 16; ++ks)\n      wgmma_m64n64k16(",
+                  "    for (int ks = 0; ks < 0; ++ks)\n      wgmma_m64n64k16(")],
+    "no epilogue": [("  mbar_arrive_if(ring.empty + prev, lane == 0);\n\n  const int wlo",
+                     "  mbar_arrive_if(ring.empty + prev, lane == 0);\n  return;\n  const int wlo")],
     # neither side waits: the consumers would run phases ahead of a producer
     # that waits on their arrivals
     "no weight stream": [
