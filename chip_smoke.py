@@ -318,7 +318,7 @@ def check_mrf(torch, dev, shapes):
                 raise AssertionError(f"kernel C disagrees at B={B} T={T} in {name}: "
                                      f"{err} > {tol}")
             if dtype == torch.bfloat16:
-                row = dict(max_abs_err=err, ms=on_dev, plain_ms=plain, bound_ms=b_ms,
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                            bound_by=b_by)
     return row
 

@@ -4,8 +4,7 @@ Kernel C (``ops/kernels/mrf_stage.py``, ``csrc/mrf_stage.cu``) reads its
 weights prepared once (``prepare_weights``): every tap of every conv in the
 order the block uses them, bf16 taps as [cout/8][cin/8][8][8] core matrices.
 The serving generator keeps them while its frozen weight norms stay the
-same; the wrapper's plain version takes them back (``unpack_weights``) on
-the CPU.  The kernel itself is held against its plain version on the card
+same.  The kernel itself is held against its plain version on the card
 (``tests/test_torch_cuda.py``).
 
 Tolerances: the prepared weights are the packed ones rounded to the
@@ -14,6 +13,8 @@ stage on them equals the plain stage on the packed weights exactly (it
 rounds each operand to the I/O dtype the same way); against the Pallas
 kernel in interpret mode at C = 64, f32, 1e-5 (summation order).
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +26,7 @@ from vispeech_tpu.ops.pallas.mrf_stage import mrf_stack as jax_mrf_stack
 from vispeech_tpu_torch.infer.batching import DEFAULT_TIERS, SERVING_BUCKETS
 from vispeech_tpu_torch.models import generator as generator_mod
 from vispeech_tpu_torch.models.generator import Generator
-from vispeech_tpu_torch.ops.kernels import mrf_stage
+from vispeech_tpu_torch.ops.kernels import _build, mrf_stage
 from vispeech_tpu_torch.ops.layers import freeze_weight_norm
 from vispeech_tpu_torch.ops.resblock import ResBlock1
 
@@ -41,6 +42,25 @@ def _packed(seed=0, scale=0.03, ks=KS, n_unit=3):
         r.randn(n_unit, k, C, C) * scale, r.randn(n_unit, 1, C) * 0.1)) for k in ks]
 
 
+def _unpack(prep):
+    """(w1, b1, w2, b2) per branch from prepared weights: the values the
+    kernel reads, in f32, taken back out of its layout."""
+    w, off, conv, branches = prep.w.float(), 0, 0, []
+    n_unit = len(prep.dilations[0])
+    for k in prep.kernel_sizes:
+        convs = []
+        for _ in range(2 * n_unit):
+            taps = w[off:off + k * C * C]
+            if prep.dtype == torch.bfloat16:
+                taps = taps.reshape(k, C // 8, C // 8, 8, 8).permute(0, 2, 4, 1, 3)
+            convs.append((taps.reshape(k, C, C), prep.b[conv].reshape(1, C)))
+            off, conv = off + k * C * C, conv + 1
+        branches.append(tuple(torch.stack([convs[2 * u + j][i] for u in range(n_unit)])
+                              for j in (0, 1) for i in (0, 1)))
+    assert off == w.numel() and conv == prep.b.shape[0]
+    return branches
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prepared_weights_round_trip(dtype):
     packed = _packed()
@@ -48,7 +68,7 @@ def test_prepared_weights_round_trip(dtype):
     assert prep.w.dtype == dtype and prep.b.dtype == torch.float32
     n_taps = 2 * 3 * sum(KS)
     assert prep.w.shape == (n_taps * C * C,) and prep.b.shape == (18, C)
-    back = mrf_stage.unpack_weights(prep)
+    back = _unpack(prep)
     for got, want in zip(back, packed):
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.shape == w.shape
@@ -92,10 +112,19 @@ def test_plain_stage_on_prepared_weights_matches(dtype):
     packed = _packed(seed=4)
     prep = mrf_stage.prepare_weights(packed, KS, DILS, dtype)
     want = mrf_stage.mrf_stack_plain(x, packed, KS, DILS)
-    assert torch.equal(mrf_stage.mrf_stack(x, None, KS, DILS, prep), want)
     assert torch.equal(mrf_stage.mrf_stack(x, packed, KS, DILS), want)
-    assert torch.equal(mrf_stage.mrf_stack_plain(x, mrf_stage.unpack_weights(prep), KS, DILS),
-                       want)
+    assert torch.equal(mrf_stage.mrf_stack(x, packed, KS, DILS, prep), want)
+    assert torch.equal(mrf_stage.mrf_stack_plain(x, _unpack(prep), KS, DILS), want)
+
+
+def test_stage_without_weights_is_refused():
+    x = torch.zeros(1, 20, C)
+    with pytest.raises(ValueError, match="packed weights or prepared ones"):
+        mrf_stage.mrf_stack(x, None, KS, DILS)
+    # the plain version on the CPU reads packed weights, not the kernel's layout
+    prep = mrf_stage.prepare_weights(_packed(), KS, DILS, torch.float32)
+    with pytest.raises(ValueError, match="packed weights on a CPU tensor"):
+        mrf_stage.mrf_stack(x, None, KS, DILS, prep)
 
 
 def test_plain_stage_at_c64_matches_pallas():
@@ -106,8 +135,7 @@ def test_plain_stage_at_c64_matches_pallas():
                                    jax.tree.map(jnp.asarray, [tuple(a.numpy() for a in p)
                                                               for p in packed]),
                                    KS, DILS, tile=128, interpret=True))
-    prep = mrf_stage.prepare_weights(packed, KS, DILS, torch.float32)
-    got = mrf_stage.mrf_stack(torch.from_numpy(x), None, KS, DILS, prep).numpy()
+    got = mrf_stage.mrf_stack(torch.from_numpy(x), packed, KS, DILS).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
 
@@ -125,26 +153,20 @@ def test_prepare_rejects_what_the_kernel_does_not_take():
                                   torch.bfloat16)
 
 
-def _serving_launches():
-    """(B, T) of every C = 64 stage the serving engine can launch: each
-    bucket at each batch tier."""
-    return [(tier, bucket * SAMPLES_PER_FRAME) for bucket in SERVING_BUCKETS
-            for tier in DEFAULT_TIERS]
-
-
-@pytest.mark.parametrize("B,T", _serving_launches())
-def test_launch_grid_covers_every_sample_once(B, T):
-    grid = mrf_stage.launch_grid(B, T)
-    tile = grid["tile"]
-    starts = [(b, s) for b in range(B) for s in range(0, T, tile)]
-    assert grid["blocks"] == len(starts)
-    covered = np.zeros((B, T), np.int32)
-    for b, s in starts:
-        covered[b, s:s + tile] += 1
-    assert (covered == 1).all()
-    # as many blocks as the 128-sample tile gives wherever that fills the card
-    if B * -(-T // 128) >= 132:
-        assert grid["blocks"] >= 132
+def test_launch_grid_is_the_kernels_grid():
+    """``launch_grid`` restates the grid ``csrc/mrf_stage.cu`` launches: one
+    block per ``TILE`` samples of each batch item, with its constants."""
+    src = (_build.CSRC / "mrf_stage.cu").read_text()
+    for name, value in (("TT", mrf_stage.TILE), ("HALO", mrf_stage.HALO),
+                        ("C", mrf_stage.CHANNELS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+    assert "dim3 grid((T + TT - 1) / TT, B);" in src
+    for B in DEFAULT_TIERS:
+        for T in (1, 127, 128, 129) + tuple(b * SAMPLES_PER_FRAME for b in SERVING_BUCKETS):
+            grid = mrf_stage.launch_grid(B, T)
+            per_item = grid["blocks"] // B
+            assert grid["tile"] == mrf_stage.TILE and grid["blocks"] == B * per_item
+            assert (per_item - 1) * grid["tile"] < T <= per_item * grid["tile"]
 
 
 def _generator(seed=0):
@@ -157,34 +179,51 @@ def _generator(seed=0):
 
 def test_generator_keeps_prepared_weights_while_frozen(monkeypatch):
     """The cache logic of the serving generator, driven on the CPU by
-    taking the CPU for the card: C's weights are prepared once per frozen
-    weight set, no request packs them, an in-place update or a re-freeze
-    prepares them again, and the output equals the uncached path's."""
-    calls, packs = [], []
+    taking the CPU for the card and the kernel for a stand-in that records
+    what each request hands it: C's weights are prepared once per frozen
+    weight set and dtype, no request packs them, and an in-place update or
+    a re-freeze prepares them again from the tensors as they are then."""
+    calls, packs, seen = [], [], []
     real, real_packed = mrf_stage.prepare_weights, ResBlock1.packed
     monkeypatch.setattr(mrf_stage, "prepare_weights", lambda *a: calls.append(a[3]) or real(*a))
     monkeypatch.setattr(ResBlock1, "packed", lambda self: packs.append(1) or real_packed(self))
     monkeypatch.setattr(generator_mod, "_on_card", lambda x: True)
+    monkeypatch.setattr(mrf_stage, "mrf_stack",
+                        lambda x, packed, ks, dils, prepared: seen.append((packed, prepared)) or x)
     gen = _generator()
+    stage = gen.resblocks[:3]   # the C = 64 stage
+
+    def want(dtype):
+        return real([real_packed(b) for b in stage], KS, DILS, dtype)
+
     x = torch.randn(2, 40, 16)
     with torch.no_grad():
-        a = gen(x)
-        assert calls == [torch.float32] and len(packs) == 3
-        assert torch.equal(gen(x), a) and len(calls) == 1 and len(packs) == 3
+        gen(x)
+        first = seen[-1][1]
+        assert seen[-1][0] is None and calls == [torch.float32] and len(packs) == 3
+        assert torch.equal(first.w, want(torch.float32).w)
+        gen(x)
+        assert seen[-1][0] is None and seen[-1][1] is first and len(calls) == 1 and len(packs) == 3
         gen(x.bfloat16())   # another dtype: its own operands
-        assert calls == [torch.float32, torch.bfloat16]
+        assert calls == [torch.float32, torch.bfloat16] and seen[-1][1].dtype == torch.bfloat16
         gen(x)
         assert len(calls) == 3   # one stage, one cache entry: the dtype changed back
-        gen.resblocks[2].convs1[1].folded.mul_(2.0)
-        b = gen(x)
-        assert len(calls) == 4 and not torch.equal(a, b)
-        assert torch.equal(gen(x), b) and len(calls) == 4
+        stage[2].convs1[1].folded.mul_(2.0)
+        gen(x)
+        edited = seen[-1][1]
+        assert len(calls) == 4 and torch.equal(edited.w, want(torch.float32).w)
+        assert not torch.equal(edited.w, first.w)
+        gen(x)
+        assert seen[-1][1] is edited and len(calls) == 4
         freeze_weight_norm(gen)   # new tensors from weight_g and weight_v: the edit is gone
-        assert torch.equal(gen(x), a) and len(calls) == 5
+        gen(x)
+        assert len(calls) == 5 and torch.equal(seen[-1][1].w, first.w)
+        assert all(packed is None for packed, _ in seen)
     monkeypatch.setattr(generator_mod, "_on_card", lambda x: False)
     n_packs = len(packs)
     with torch.no_grad():
-        assert torch.equal(gen(x), a)
+        gen(x)
+    assert seen[-1][1] is None and seen[-1][0] is not None
     assert len(calls) == 5 and len(packs) == n_packs + 3
 
 

@@ -116,30 +116,6 @@ def prepare_weights(packed: Sequence[BranchWeights], kernel_sizes, dilations,
                            kernel_sizes, dilations, dtype)
 
 
-def unpack_weights(prepared: PreparedMRF) -> list:
-    """The inverse of ``prepare_weights``: (w1, b1, w2, b2) per branch with
-    the prepared values (rounded to the prepared dtype), for the plain
-    version on the CPU."""
-    C, n_unit = CHANNELS, len(prepared.dilations[0])
-    w = prepared.w.float()
-    off, conv, branches = 0, 0, []
-    for k in prepared.kernel_sizes:
-        convs = []
-        for _ in range(2 * n_unit):
-            taps = w[off:off + k * C * C]
-            if prepared.dtype == torch.bfloat16:
-                taps = taps.reshape(k, C // 8, C // 8, 8, 8).permute(0, 2, 4, 1, 3)
-            convs.append((taps.reshape(k, C, C), prepared.b[conv].reshape(1, C)))
-            off += k * C * C
-            conv += 1
-        w1 = torch.stack([convs[2 * u][0] for u in range(n_unit)])
-        b1 = torch.stack([convs[2 * u][1] for u in range(n_unit)])
-        w2 = torch.stack([convs[2 * u + 1][0] for u in range(n_unit)])
-        b2 = torch.stack([convs[2 * u + 1][1] for u in range(n_unit)])
-        branches.append((w1, b1, w2, b2))
-    return branches
-
-
 def launch_grid(batch: int, T: int) -> dict:
     """The grid of one launch: blocks (one per tile of ``TILE`` samples of
     one batch item) and the samples each block owns."""
@@ -148,13 +124,14 @@ def launch_grid(batch: int, T: int) -> dict:
 
 def mrf_stack(x, packed: Optional[Sequence[BranchWeights]], kernel_sizes, dilations,
               prepared: Optional[PreparedMRF] = None):
-    """Kernel C on a CUDA tensor; the plain version on a CPU tensor.
-    ``prepared`` (from ``prepare_weights``, in x's dtype) stands in for
-    ``packed``, which may then be None; without it the weights are prepared
-    at the call."""
+    """Kernel C on a CUDA tensor; the plain version on a CPU tensor.  On
+    the card ``prepared`` (from ``prepare_weights``, in x's dtype) stands in
+    for ``packed``, which may then be None; without it the weights are
+    prepared at the call.  The plain version takes ``packed``."""
+    if packed is None and (prepared is None or x.device.type == "cpu"):
+        raise ValueError("mrf_stack needs packed weights" + (
+            " on a CPU tensor" if prepared is not None else " or prepared ones"))
     if x.device.type == "cpu":
-        if packed is None:
-            packed = unpack_weights(prepared)
         return mrf_stack_plain(x, packed, kernel_sizes, dilations)
     global launches
     refuse_autograd("mrf_stage", "the plain ResBlock1 stages (Generator(fused=False))",

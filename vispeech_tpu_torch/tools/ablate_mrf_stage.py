@@ -15,12 +15,12 @@ the parts do not overlap.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 
 import torch
 
 from vispeech_tpu_torch.ops.kernels import _build, mrf_stage
+from vispeech_tpu_torch.tools import _ablate
 
 KS, DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SHAPES = ((1, 128 * 256), (1, 1400 * 256))
@@ -45,51 +45,13 @@ VARIANTS = {
 }
 
 
-def build(root) -> dict:
-    """Each variant's library, built at once into ``root``."""
-    src = (_build.CSRC / "mrf_stage.cu").read_text()
-    procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant '{name}': the source no longer has {old[:60]!r}")
-            text = text.replace(old, new)
-        stem = name.replace(" ", "_")
-        cu, so = root / f"{stem}.cu", root / f"lib{stem}.so"
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                                         str(cu)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant '{name}':\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
-
-
-def device_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_mrf_stage: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     root = _build.BUILD_DIR / "ablate_mrf_stage"
     root.mkdir(parents=True, exist_ok=True)
-    libs = build(root)
+    libs = _ablate.build("mrf_stage", VARIANTS, root)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     packed = [tuple((torch.randn(*shape, generator=gen) * scale).to(dev)
@@ -102,19 +64,16 @@ def main() -> int:
         x = torch.randn(B, T, 64, generator=gen).to(dev, torch.bfloat16)
         cases.append((B, T, x, mrf_stage.mrf_stack_plain(x, packed, KS, DILS).float()))
     for name, lib in libs.items():
-        # the wrapper's typed function, from this variant's library
-        fn = lib.mrf_stage_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
-        _build._FUNCS[("mrf_stage", "mrf_stage_launch")] = fn
+        _ablate.bind(lib, "mrf_stage", {"mrf_stage_launch": (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            + [ctypes.c_int, ctypes.c_void_p])})
         row = []
         for B, T, x, ref in cases:
             def call():
                 return mrf_stage.mrf_stack(x, None, KS, DILS, prep)
             err = (call().float() - ref).abs().max().item()
             reps = max(5, min(50, 2 ** 23 // (B * T)))
-            row.append(f"B={B} T={T} {device_ms(call, reps):.4f} ms (err {err:.1e})")
+            row.append(f"B={B} T={T} {_ablate.device_ms(call, reps):.4f} ms (err {err:.1e})")
         print(f"{name:18s} " + "; ".join(row))
     _build._FUNCS.clear()
     return 0

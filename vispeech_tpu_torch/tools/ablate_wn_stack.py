@@ -14,12 +14,12 @@ the parts do not overlap.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 
 import torch
 
 from vispeech_tpu_torch.ops.kernels import _build, wn_stack
+from vispeech_tpu_torch.tools import _ablate
 
 WGMMA = ("        wgmma_n32(acc[s], al[ks], b_desc(hi));\n"
          "        wgmma_n32(acc[s], ah[ks], b_desc(hi + NSUB * 256));\n")
@@ -36,44 +36,6 @@ VARIANTS = {
 }
 
 
-def build(root) -> dict:
-    """Each variant's library, built at once into ``root``."""
-    src = (_build.CSRC / "wn_stack.cu").read_text()
-    procs = {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant '{name}': the source no longer has {old[:60]!r}")
-            text = text.replace(old, new)
-        stem = name.replace(" ", "_").replace("(", "").replace(")", "").replace("·", "")
-        cu, so = root / f"{stem}.cu", root / f"lib{stem}.so"
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                                         str(cu)], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant '{name}':\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_wn_stack: needs an NVIDIA GPU", file=sys.stderr)
@@ -81,7 +43,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     root = _build.BUILD_DIR / "ablate_wn_stack"
     root.mkdir(parents=True, exist_ok=True)
-    libs = build(root)
+    libs = _ablate.build("wn_stack", VARIANTS, root)
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
@@ -96,18 +58,16 @@ def main() -> int:
                 rn(L, C, 2 * C, scale=0.05), rn(L, 1, 2 * C, scale=0.1))
         cases.append((T, L, args, wn_stack.prepare_weights(args[3], args[4])))
     for name, lib in libs.items():
-        # the wrapper's typed functions, from this variant's library
-        for symbol, n_ptr, n_int in (("wn_stack_launch", 7, 5), ("wn_stack_layer_launch", 8, 6)):
-            fn = getattr(lib, symbol)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-            _build._FUNCS[("wn_stack", symbol)] = fn
+        _ablate.bind(lib, "wn_stack", {
+            symbol: [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            for symbol, n_ptr, n_int in (("wn_stack_launch", 7, 5),
+                                         ("wn_stack_layer_launch", 8, 6))})
         row = []
         for T, L, args, prep in cases:
             def call():
                 return wn_stack.wn_stack(*args[:3], None, None, args[5], K, prep)
             err = (call() - wn_stack.wn_stack_plain(*args, K)).abs().max().item()
-            row.append(f"T={T} L={L} {device_ms(call):.4f} ms (err {err:.1e})")
+            row.append(f"T={T} L={L} {_ablate.device_ms(call, 20):.4f} ms (err {err:.1e})")
         print(f"{name:18s} " + "; ".join(row))
     _build._FUNCS.clear()
     return 0
