@@ -6,7 +6,8 @@ and check them.
 
 1. Builds kernels A, B, C, D (serving) and E, F (training) from
    ``vispeech_tpu_torch/csrc`` (one nvcc per source, all at once) and
-   prints the build time.
+   prints the build time, each kernel's registers and any ptxas warning
+   that it serialized a kernel's wgmma (C75xx).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (TF32 off) and times both: A at T = 96, 512 and 1400
    (B = 1, H = 2, d = 96), B at T = 128 and 1400 with L = 4 and a speaker,
@@ -17,9 +18,11 @@ and check them.
    bucket (32 768 and 358 400 samples, batch 1) in bf16 and f32, its
    weights prepared once as the serving generator keeps them, with wall
    and device time, the grid, the bound and the plain version's time; D at
-   the 1400-frame bucket's C = 32 stage (716 800 samples, fold 4) in bf16
-   and f32, timed beside the cuDNN ResBlock1 stage it replaces (unfolded,
-   bf16).
+   the C = 32 stage (fold 4) of a 128- and a 1400-frame bucket (65 536 and
+   716 800 samples, batch 1) and a batch of 2 at bucket 256, in bf16 with
+   its weights prepared once, with wall and device time, the bound and the
+   plain version's time; at 716 800 samples also in f32 and timed beside
+   the cuDNN ResBlock1 stage it replaces (unfolded, bf16).
 2b. E and F, forward and backward with every gradient, at the training
    shapes (B = 12, T = 1024): E with L = 16 and a speaker (enc_q) and
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
@@ -61,9 +64,9 @@ package is not beside this file, or when any phase fails.
 
     python3 chip_smoke.py --kernel-times
 
-prints only the times of kernels A and B at phase 2's shapes and of C in
-bf16 at ``MRF_TIMED`` (C's kernel alone too, from the profiler), as one
-JSON line, for the checkout this file sits in: a copy of this file in
+prints only the times of kernels A and B at phase 2's shapes, of C in
+bf16 at ``MRF_TIMED`` and of D in bf16 at ``FOLDED_TIMED`` (C's and D's
+kernel alone too, from the profiler), as one JSON line, for the checkout this file sits in: a copy of this file in
 another checkout of the port times that one, so two versions compare
 within one run.
 """
@@ -245,12 +248,13 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 MRF_TIMED = ((1, 128 * MRF_SAMPLES), (1, 1400 * MRF_SAMPLES), (2, 256 * MRF_SAMPLES))
 
 
-def mrf_weights(torch, dev, gen, C=64):
-    """Kernel C's weights (ResBlock1.packed() per branch), drawn from gen."""
+def mrf_weights(torch, dev, gen, C=64, scale=0.03):
+    """Kernel C's weights (ResBlock1.packed() per branch), or D's at C < 64,
+    drawn from gen."""
     def rn(*shape, scale):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
-    return [(rn(3, k, C, C, scale=0.03), rn(3, 1, C, scale=0.1), rn(3, k, C, C, scale=0.03),
+    return [(rn(3, k, C, C, scale=scale), rn(3, 1, C, scale=0.1), rn(3, k, C, C, scale=scale),
              rn(3, 1, C, scale=0.1)) for k in MRF_KS]
 
 
@@ -324,9 +328,10 @@ def check_mrf(torch, dev, shapes):
 
 
 def kernel_times(torch, dev) -> dict:
-    """Kernels A and B at phase 2's shapes (B = 1) and C at ``MRF_TIMED``,
-    each call's time (events around back-to-back calls) and device time
-    (calls queued ahead), and for C the kernel's own device time (profiler),
+    """Kernels A and B at phase 2's shapes (B = 1), C at ``MRF_TIMED`` and D
+    at ``FOLDED_TIMED`` (bf16), each call's time (events around back-to-back
+    calls) and device time (calls queued ahead), and for C and D the
+    kernel's own device time (profiler),
     through the interface every version of their wrappers has: the same
     script times two checkouts of the port for an A/B in one run
     (--kernel-times)."""
@@ -374,21 +379,43 @@ def kernel_times(torch, dev) -> dict:
         reps = max(5, min(50, 2 ** 23 // (B * T)))
         times[f"C B={B} T={T}"] = (time_ms(call, reps), device_ms(call, reps)[0],
                                    kernel_ms(torch, call, "mrf_stage_kernel", reps))
+    # kernel D in bf16 at FOLDED_TIMED, its weights prepared once (every
+    # version of its wrapper takes them so)
+    from vispeech_tpu_torch.ops.kernels import mrf_stage_folded
+
+    packed = mrf_weights(torch, dev, gen, FOLDED_C, scale=0.05)
+    prep = mrf_stage_folded.prepare_weights(packed, MRF_KS, MRF_DILS, FOLDED_FOLD, FOLDED_C,
+                                            torch.bfloat16)
+    for B, T in FOLDED_TIMED:
+        x = rn(B, T, FOLDED_C).bfloat16()
+        call = lambda: mrf_stage_folded.mrf_stack_folded(  # noqa: E731
+            x, None, MRF_KS, MRF_DILS, FOLDED_FOLD, prep)
+        reps = max(5, min(50, 2 ** 24 // (B * T)))
+        times[f"D B={B} T={T}"] = (time_ms(call, reps), device_ms(call, reps)[0],
+                                   kernel_ms(torch, call, "mrf_folded_kernel", reps))
     return times
 
 
-def check_folded(torch, dev, rn, nbytes, frames=1400):
-    """Kernel D at the C = 32 stage of a 1400-frame bucket (716 800 samples,
-    fold 4) against its plain version in bf16 and f32, timed beside the
-    stage D replaced: three cuDNN ResBlock1 branches, unfolded, bf16."""
+FOLDED_C, FOLDED_FOLD = 32, 4   # the C = 32 stage at fold 4: hop 512 over the last ×2 ×4
+# kernel D's timed (B, T): buckets 128 and 1400 at batch 1, and a batch of 2
+# at bucket 256 (512 samples a frame)
+FOLDED_TIMED = ((1, 128 * 512), (1, 1400 * 512), (2, 256 * 512))
+
+
+def check_folded(torch, dev, rn, nbytes):
+    """Kernel D at the C = 32 stage (fold 4) of ``FOLDED_TIMED`` against its
+    plain version in bf16, its weights prepared once as the serving
+    generator keeps them (equal to folding them at the call), with wall and
+    device time, the plain version's time and the bound; at the 1400-frame
+    bucket (716 800 samples) also in f32, and timed beside the stage D
+    replaced: three cuDNN ResBlock1 branches, unfolded, bf16.  → the JSON
+    row of the 1400-frame bucket's bf16 run."""
     from vispeech_tpu_torch.ops.folded_mrf import folded_units
     from vispeech_tpu_torch.ops.kernels import mrf_stage_folded as D
     from vispeech_tpu_torch.ops.resblock import ResBlock1
 
-    ks, dils, C, fold = (3, 7, 11), ((1, 3, 5),) * 3, 32, 4
-    T = frames * 512
-    packed = [(rn(3, kk, C, C, scale=0.05), rn(3, 1, C, scale=0.1),
-               rn(3, kk, C, C, scale=0.05), rn(3, 1, C, scale=0.1)) for kk in ks]
+    ks, dils, C, fold = MRF_KS, MRF_DILS, FOLDED_C, FOLDED_FOLD
+    packed = mrf_weights(torch, dev, torch.Generator().manual_seed(SEED + 3), C, scale=0.05)
     blocks = []
     for (w1, b1, w2, b2), kk, d in zip(packed, ks, dils):
         block = ResBlock1(C, kk, d).to(dev)
@@ -402,56 +429,67 @@ def check_folded(torch, dev, rn, nbytes, frames=1400):
         with torch.no_grad():
             return sum(block.forward_cf(x_cf) for block in blocks) / len(blocks)
 
-    # the function's own work (unfolded), and the folded convs D computes
-    flops = 2.0 * T * C * C * 2 * sum(kk * len(d) for kk, d in zip(ks, dils))
+    # the function's own work (unfolded) per sample, and the folded convs D computes
+    flops_per_sample = 2.0 * C * C * 2 * sum(kk * len(d) for kk, d in zip(ks, dils))
     taps = sum(wf.shape[0] for units in folded_units(packed, dils, fold)
                for unit in units for wf, _, _ in unit)
-    folded_flops = 2.0 * (T // fold) * (fold * C) ** 2 * taps
     row = None
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        x = rn(1, T, C, dtype=dtype)
-        prepared = D.prepare_weights(packed, ks, dils, fold, C, dtype)
-        out = D.mrf_stack_folded(x, None, ks, dils, fold, prepared)
-        if not torch.equal(out, D.mrf_stack_folded(x, packed, ks, dils, fold)):
-            raise AssertionError("kernel D differs with weights prepared ahead and at the call")
-        ref = D.mrf_stack_folded_plain(x, packed, ks, dils, fold)
-        err = (out.float() - ref.float()).abs().max().item()
-        peak = ref.float().abs().max().item()
-        # f32: summation order over up to 15 · 128 terms; bf16: one ulp at the peak
-        tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * peak
-        ok = err <= tol
-        w_bytes = sum(nbytes(w1, w2) * x.element_size() // 4 + nbytes(b1, b2)
-                      for w1, b1, w2, b2 in packed)
-        b_ms, b_by = bound(nbytes(x, out) + w_bytes, flops, name)
-        fb_ms, _ = bound(nbytes(x, out) + w_bytes, folded_flops, name)
-        print(f"kernel D mrf_stage_folded T={T} C={C} fold={fold} {name}: max_abs_err "
-              f"{err:.3e} (peak {peak:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}; bound "
-              f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP of the stage), "
-              f"{fb_ms:.4f} ms for the {folded_flops / 1e9:.1f} GFLOP of {taps} folded taps")
-        if not ok:
-            raise AssertionError(f"kernel D disagrees in {name}: {err} > {tol}")
-        if dtype != torch.bfloat16:
-            ms = time_ms(lambda: D.mrf_stack_folded(x, None, ks, dils, fold, prepared), 3)
-            plain = time_ms(lambda: D.mrf_stack_folded_plain(x, packed, ks, dils, fold), 2)
-            print(f"  f32 times: D {ms:.4f} ms, plain folded {plain:.4f} ms")
-            continue
-        x_cf = x.transpose(1, 2).contiguous()
-        stage = cudnn_stage(x_cf)
-        diff = (stage.transpose(1, 2).float() - ref.float()).abs().max().item()
-        # the A/B that decides the C < 64 dispatch, in turns: D, plain, cuDNN, D.
-        # D as serving calls it (weights prepared once) and folding them at the call
-        ms = time_ms(lambda: D.mrf_stack_folded(x, None, ks, dils, fold, prepared), 5)
-        plain = time_ms(lambda: D.mrf_stack_folded_plain(x, packed, ks, dils, fold), 3)
-        unfolded = time_ms(lambda: cudnn_stage(x_cf), 5)
-        ms2 = time_ms(lambda: D.mrf_stack_folded(x, None, ks, dils, fold, prepared), 5)
-        at_call = time_ms(lambda: D.mrf_stack_folded(x, packed, ks, dils, fold), 5)
-        print(f"  bf16 times: D {ms:.4f} / {ms2:.4f} ms ({at_call:.4f} ms folding the weights "
-              f"at the call), plain folded {plain:.4f} ms, cuDNN ResBlock1 stage (unfolded) "
-              f"{unfolded:.4f} ms; the cuDNN stage differs from D's plain version by "
-              f"{diff:.3e} (bf16 rounding at other places)")
-        row = dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms,
-                   bound_by=b_by)
+    for B, T in FOLDED_TIMED:
+        long = T == 1400 * 512
+        for dtype in (torch.float32, torch.bfloat16) if long else (torch.bfloat16,):
+            name = str(dtype).split(".")[1]
+            x = rn(B, T, C, dtype=dtype)
+            prepared = D.prepare_weights(packed, ks, dils, fold, C, dtype)
+            call = lambda: D.mrf_stack_folded(x, None, ks, dils, fold, prepared)  # noqa: E731
+            out = call()
+            if not torch.equal(out, D.mrf_stack_folded(x, packed, ks, dils, fold)):
+                raise AssertionError("kernel D differs with weights prepared ahead and at the "
+                                     "call")
+            ref = D.mrf_stack_folded_plain(x, packed, ks, dils, fold)
+            err = (out.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            # f32: summation order over up to 15 · 128 terms; bf16: one ulp at the peak
+            tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * peak
+            ok = err <= tol
+            w_bytes = sum(nbytes(w1, w2) * x.element_size() // 4 + nbytes(b1, b2)
+                          for w1, b1, w2, b2 in packed)
+            flops = flops_per_sample * B * T
+            folded_flops = 2.0 * B * (T // fold) * (fold * C) ** 2 * taps
+            b_ms, b_by = bound(nbytes(x, out) + w_bytes, flops, name)
+            fb_ms, _ = bound(nbytes(x, out) + w_bytes, folded_flops, name)
+            print(f"kernel D mrf_stage_folded B={B} T={T} C={C} fold={fold} {name}: max_abs_err "
+                  f"{err:.3e} (peak {peak:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}; bound "
+                  f"{b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP of the stage), "
+                  f"{fb_ms:.4f} ms for the {folded_flops / 1e9:.1f} GFLOP of {taps} folded taps")
+            if not ok:
+                raise AssertionError(f"kernel D disagrees at B={B} T={T} in {name}: "
+                                     f"{err} > {tol}")
+            if dtype != torch.bfloat16:
+                ms = time_ms(call, 3)
+                plain = time_ms(lambda: D.mrf_stack_folded_plain(x, packed, ks, dils, fold), 2)
+                print(f"  f32 times: D {ms:.4f} ms, plain folded {plain:.4f} ms")
+                continue
+            reps = max(5, min(50, 2 ** 24 // (B * T)))
+            # in turns: D, plain, D; D as serving calls it (weights prepared
+            # once) and folding them at the call
+            ms = time_ms(call, reps)
+            plain = time_ms(lambda: D.mrf_stack_folded_plain(x, packed, ks, dils, fold),
+                            max(2, reps // 5))
+            ms2 = time_ms(call, reps)
+            on_dev, host = device_ms(call, reps)
+            at_call = time_ms(lambda: D.mrf_stack_folded(x, packed, ks, dils, fold), 5)
+            print(f"  bf16 times: D {ms:.4f} / {ms2:.4f} ms ({on_dev:.4f} ms of device time "
+                  f"with calls queued ahead, {host:.4f} ms host dispatch; {at_call:.4f} ms "
+                  f"folding the weights at the call), plain folded {plain:.4f} ms")
+            if not long:
+                continue
+            x_cf = x.transpose(1, 2).contiguous()
+            diff = (cudnn_stage(x_cf).transpose(1, 2).float() - ref.float()).abs().max().item()
+            unfolded = time_ms(lambda: cudnn_stage(x_cf), 5)
+            print(f"  cuDNN ResBlock1 stage (unfolded, bf16) {unfolded:.4f} ms; it differs from "
+                  f"D's plain version by {diff:.3e} (bf16 rounding at other places)")
+            row = dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by)
     return row
 
 
@@ -1031,6 +1069,10 @@ def main() -> int:
     for name, log in reports.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"  {name}: {'; '.join(regs)}")
+        # ptxas's warnings that it serialized a kernel's wgmma (C75xx)
+        for ln in log.splitlines():
+            if "C75" in ln:
+                print(f"  {name} ptxas: {ln.strip()}")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

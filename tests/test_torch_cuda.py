@@ -202,6 +202,29 @@ def test_mrf_stage_folded(device, dtype, T, C, fold):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("prepared", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", [(2, 4 * 500), (1, 65536), (2, 131072)])
+def test_mrf_stage_folded_shapes(device, B, T, dtype, prepared):
+    """The C = 32 stage at fold 4: B = 2 over 500 folded frames (three
+    154-frame tiles and a partial last window of 38), the smallest
+    bucket's stage (128 frames, 65 536 samples) and B = 2 at 131 072
+    samples; weights prepared ahead (as the serving generator keeps them)
+    or folded at the call."""
+    r = np.random.RandomState(13)
+    x = _cuda(device, r.randn(B, T, 32), dtype=dtype)[0]
+    packed = [_cuda(device, r.randn(3, k, 32, 32) * 0.05, r.randn(3, 1, 32) * 0.1,
+                    r.randn(3, k, 32, 32) * 0.05, r.randn(3, 1, 32) * 0.1) for k in KS]
+    prep = mrf_stage_folded.prepare_weights(packed, KS, DILS, 4, 32, dtype) if prepared else None
+    before = mrf_stage_folded.launches
+    out = mrf_stage_folded.mrf_stack_folded(x, None if prepared else packed, KS, DILS, 4, prep)
+    assert mrf_stage_folded.launches == before + 1 and out.dtype == dtype
+    ref = mrf_stage_folded.mrf_stack_folded_plain(x, packed, KS, DILS, 4).float()
+    tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * ref.abs().max().item()
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [100, 700])
 def test_mrf_stage(device, dtype, T):

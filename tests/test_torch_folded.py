@@ -16,6 +16,8 @@ in another order can move a rounding by one bf16 ulp, so the output is
 held to 2^-7 of its peak, one bf16 ulp in the peak's binade.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +31,7 @@ from vispeech_tpu.ops.folded_mrf import mrf_stage_folded as jax_mrf_stage_folded
 from vispeech_tpu.ops.pallas.mrf_stage import mrf_stack_folded as jax_mrf_stack_folded
 from vispeech_tpu_torch.models.generator import Generator
 from vispeech_tpu_torch.ops import folded_mrf
-from vispeech_tpu_torch.ops.kernels import mrf_stage_folded
+from vispeech_tpu_torch.ops.kernels import _build, mrf_stage_folded
 from vispeech_tpu_torch.utils.jax_weights import load_flax_params
 
 ATOL = 2e-5
@@ -107,6 +109,34 @@ class TestFoldedMRF:
                                               (3,), ((1,),), 2)
 
 
+def _unpacked_taps(prep):
+    """Every tap of prepared weights as [taps, cin, cout] f32, taken back out
+    of the kernel's layout (bf16: [cout/8][cin/8][8 cout][8 cin])."""
+    taps = prep.w.reshape(-1, 128, 128).float()
+    if prep.dtype == torch.bfloat16:
+        taps = taps.reshape(-1, 16, 16, 8, 8).permute(0, 2, 4, 1, 3).reshape(-1, 128, 128)
+    return taps
+
+
+def _assert_taps(prep, w, fold, cf):
+    """Each folded conv's taps, zero-padded past ``cf``, and its pads, in
+    the order the kernel takes them."""
+    taps, off, n = _unpacked_taps(prep), 0, 0
+    for units in folded_mrf.folded_units(w, DILS, fold):
+        for wf, bf, pads in (conv for unit in units for conv in unit):
+            kf = wf.shape[0]
+            want = torch.zeros(kf, 128, 128)
+            want[:, :cf, :cf] = wf
+            assert prep.pads[2 * n:2 * n + 2] == pads
+            torch.testing.assert_close(taps[off:off + kf], want.to(prep.dtype).float(),
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(prep.b[128 * n:128 * (n + 1)],
+                                       torch.nn.functional.pad(bf, (0, 128 - cf)), rtol=0,
+                                       atol=0)
+            off, n = off + kf, n + 1
+    assert off * 128 * 128 == prep.w.numel() and 128 * n == prep.b.numel()
+
+
 class TestKernelDPlain:
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_matches_pallas_across_tiles(self, dtype):
@@ -129,24 +159,72 @@ class TestKernelDPlain:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_prepared_weights_layout(self, dtype):
         """The kernel's operands for the configured C = 32 stage at fold 4:
-        92 taps of 128 × 128, (tap, cout, cin) in bf16 and (tap, cin, cout)
-        in f32, a folded receptive radius of 19 frames."""
+        92 taps of 128 × 128, [cout/8][cin/8][8 cout][8 cin] core matrices
+        in bf16 and (cin, cout) in f32, a folded receptive radius of 19
+        frames.  The layout is inverted here and every tap compared."""
         _, packed = _stage_inputs(1, 8, 32, KS, DILS)
         w = [_t(*p) for p in packed]
         prep = mrf_stage_folded.prepare_weights(w, KS, DILS, 4, 32, dtype)
         assert prep.w.dtype == dtype and prep.w.numel() == 92 * 128 * 128
         assert prep.halo == 19 and prep.cf == 128 and (prep.n_br, prep.n_unit) == (3, 3)
+        _assert_taps(prep, w, 4, 128)
         wf, bf, pads = folded_mrf.fold_conv_weights(w[2][0][2], w[2][1][2, 0], 5, 4)
         assert prep.pads[-4:-2] == pads == (7, 7) and wf.shape[0] == 15
-        # the last branch's last unit: conv1 (15 taps) then conv2 (5 taps)
-        first = prep.w.reshape(-1, 128, 128)[92 - 20:92 - 5].float()
-        want = wf.transpose(1, 2) if dtype == torch.bfloat16 else wf
-        torch.testing.assert_close(first, want.to(dtype).float(), rtol=0, atol=0)
         torch.testing.assert_close(prep.b[-256:-128], bf, rtol=0, atol=0)
         with pytest.raises(ValueError, match="fold·C <= 128"):
             mrf_stage_folded.prepare_weights(w, KS, DILS, 8, 32, dtype)
         with pytest.raises(ValueError, match="branches"):
             mrf_stage_folded.prepare_weights(w[:2], KS, DILS, 4, 32, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_prepared_weights_pad_narrow_stages(self, dtype):
+        """fold·C = 64 (C = 16 at fold 4): every tap and bias zero-padded to
+        128 channels, so the padded channels stay 0 in the kernel."""
+        _, packed = _stage_inputs(1, 8, 16, KS, DILS, seed=3)
+        w = [_t(*p) for p in packed]
+        prep = mrf_stage_folded.prepare_weights(w, KS, DILS, 4, 16, dtype)
+        assert prep.cf == 64 and prep.halo == 19
+        _assert_taps(prep, w, 4, 64)
+
+    def test_bf16_kernel_refuses_pads_beyond_its_slack(self):
+        """At fold 2 the k = 11, d = 5 conv spans 13 folded frames on each
+        side, more than the bf16 kernel's 8 slack rows; the f32 kernel has
+        no such limit."""
+        _, packed = _stage_inputs(1, 8, 8, (11,), ((1, 3, 5),))
+        w = [_t(*p) for p in packed]
+        f32 = mrf_stage_folded.prepare_weights(w, (11,), ((1, 3, 5),), 2, 8, torch.float32)
+        assert max(f32.pads) == 13
+        with pytest.raises(ValueError, match="slack rows"):
+            mrf_stage_folded.prepare_weights(w, (11,), ((1, 3, 5),), 2, 8, torch.bfloat16)
+
+    def test_stage_without_weights_is_refused(self):
+        x = torch.zeros(1, 32, 32)
+        with pytest.raises(ValueError, match="packed weights or prepared ones"):
+            mrf_stage_folded.mrf_stack_folded(x, None, KS, DILS, 4)
+        # the plain version on the CPU reads packed weights, not the kernel's layout
+        _, packed = _stage_inputs(1, 8, 32, KS, DILS)
+        prep = mrf_stage_folded.prepare_weights([_t(*p) for p in packed], KS, DILS, 4, 32,
+                                                torch.float32)
+        with pytest.raises(ValueError, match="packed weights on a CPU tensor"):
+            mrf_stage_folded.mrf_stack_folded(x, None, KS, DILS, 4, prep)
+
+    def test_launch_grid_is_the_kernels_grid(self):
+        """``launch_grid`` restates the grid ``csrc/mrf_stage_folded.cu``
+        launches, by which the wrapper sizes the scratch of branch sums its
+        bf16 blocks take: one block per tile of each batch item."""
+        src = (_build.CSRC / "mrf_stage_folded.cu").read_text()
+        D = mrf_stage_folded
+        for name, value in (("WIN", D.WIN), ("PADR", D.MAX_PAD), ("CF", D.MAX_CF),
+                            ("NACC", D.SCRATCH // 384)):
+            assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+        assert "constexpr int NWG = WIN / 64;" in src and "constexpr int NCT = NCW * 32;" in src
+        assert "dim3 grid((Tf + tile - 1) / tile, B);" in src
+        for B in (1, 2, 8):
+            for tf in (1, 153, 154, 155, 309, 16384, 179200):
+                grid = D.launch_grid(B, tf, 19)
+                per_item, tile = grid["blocks"] // B, grid["tile"]
+                assert tile == 154 and grid["blocks"] == B * per_item
+                assert (per_item - 1) * tile < tf <= per_item * tile
 
     def test_plain_equals_folded_stage_in_f32(self):
         """In f32 the kernel's arithmetic (f32 state) is the XLA folded stage's."""
