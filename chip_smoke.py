@@ -511,6 +511,71 @@ def _held(name, outs, refs, bf16):
     return worst
 
 
+def _op_name(key: str) -> str:
+    """A device op's profiler key without its return type, namespace and
+    arguments: ``void (anonymous namespace)::bwd_act<true>(float const*, ...)``
+    → ``bwd_act<true>``."""
+    head = key.split("(float", 1)[0].split("(__nv", 1)[0].split("(int", 1)[0]
+    return head.replace("void ", "").replace("(anonymous namespace)::", "")[:60]
+
+
+E_BWD_SHAPE = (12, 1024, 16, 5)   # B, T, L, k: enc_q, the main path's largest E call
+
+
+def e_bwd_breakdown(torch, dev, reps: int = 5) -> dict:
+    """Kernel E's bf16 backward at ``E_BWD_SHAPE``: its time per call
+    (events around back-to-back calls) and, from torch.profiler, the device
+    time per call of each op it launches (each sub-kernel summed over the
+    layers; the wrapper's own copies, casts and sums), through
+    ``_launch_fwd`` and ``_launch_bwd``, which every version of the wrapper
+    has: a copy of this file in another checkout measures that one
+    (--e-bwd).  → {"ms", "device_ms", "ops": {name: [ms, launches]}}."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    from vispeech_tpu_torch.ops.kernels import wn_stack_train as E_
+
+    B, T, L, K = E_BWD_SHAPE
+    C = 192
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    m = (torch.arange(T, device=dev)[None, :, None]
+         < torch.tensor([T - 37 * (i % 3) for i in range(B)], device=dev)[:, None, None]).float()
+    w_rs = rn(L, C, 2 * C, scale=0.05)
+    w_rs[-1, :, C:] = 0.0
+    args = (rn(B, T, C), m, rn(B, L, 2 * C, scale=0.3), rn(L, K, C, 2 * C, scale=0.03), w_rs,
+            rn(L, 1, 2 * C, scale=0.1))
+    dout = rn(B, T, C)
+    _, xs = E_._launch_fwd(*args, K, True)
+    call = lambda: E_._launch_bwd(dout, xs, *args[1:5], K, True)  # noqa: E731
+    ms = time_ms(call, reps)
+    call()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = _op_name(e.key)
+            t, n = ops.get(name, (0.0, 0))
+            ops[name] = (t + e.self_device_time_total / 1e3 / reps, n + e.count // reps)
+    return {"ms": ms, "device_ms": sum(t for t, _ in ops.values()),
+            "ops": {k: list(v) for k, v in sorted(ops.items(), key=lambda kv: -kv[1][0])}}
+
+
+def print_e_bwd(r: dict) -> None:
+    B, T, L, K = E_BWD_SHAPE
+    print(f"  wn_stack_train_bwd B={B} T={T} L={L} bf16: {r['ms']:.4f} ms a call, "
+          f"{r['device_ms']:.4f} ms of device time by the profiler:")
+    for name, (ms, n) in r["ops"].items():
+        print(f"    {ms:9.4f} ms  x{n:<4d} {name}")
+
+
 def check_train_kernels(torch, dev):
     """Phase 2b: kernels E and F, forward and backward, against their plain
     versions on the card at the training shapes (B = 12, T = 1024)."""
@@ -1060,6 +1125,12 @@ def main() -> int:
     if sys.argv[1:] == ["--kernel-times"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"root": ROOT, "card": card_line(), "ms": kernel_times(torch, dev)}))
+        return 0
+    if sys.argv[1:] == ["--e-bwd"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        r = e_bwd_breakdown(torch, dev)
+        print_e_bwd(r)
+        print(json.dumps({"root": ROOT, "card": card_line(), **r}))
         return 0
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")

@@ -14,7 +14,7 @@ launches.  Kernel D in f32 is held to 1e-4 of its output's peak (sums of
 up to 15 · 128 terms).  bf16 output is held to 2^-7 of its peak, one bf16
 ulp in the peak's binade.  The training kernels E and F, forward and every
 gradient, are held to 1e-4 of each tensor's peak in f32 and 2^-7 of it
-with bf16 operands.
+with bf16 operands (E's bf16 backward on wgmma included).
 """
 
 import numpy as np
@@ -346,6 +346,67 @@ def test_wn_stack_train(device, L, bf16):
     ref, xs = wn_stack_train.wn_stack_train_plain_fwd(*args, K, bf16)
     refs = wn_stack_train.wn_stack_train_plain_bwd(dout, xs, *args[1:5], K, bf16)
     _held([out] + [leaves[i].grad for i in (0, 2, 3, 4, 5)], (ref,) + refs, bf16)
+
+
+def _wn_train_inputs(device, B, T, L, seed=4, C=192, K=5):
+    r = np.random.RandomState(seed)
+    lengths = np.array([T - 37 * (i % 3) for i in range(B)])
+    mask = (np.arange(T)[None, :] < lengths[:, None])[..., None]
+    w_rs = r.randn(L, C, 2 * C) * 0.05
+    w_rs[-1, :, C:] = 0.0
+    b_rs = r.randn(L, 1, 2 * C) * 0.1
+    b_rs[-1, :, C:] = 0.0
+    args = _cuda(device, r.randn(B, T, C), mask, r.randn(B, L, 2 * C) * 0.3,
+                 r.randn(L, K, C, 2 * C) * 0.03, w_rs, b_rs)
+    return args, _cuda(device, r.randn(B, T, C))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 4, 16])
+@pytest.mark.parametrize("T", [77, 1000, 1024])
+def test_wn_stack_train_bf16_backward(device, T, L):
+    """The bf16 backward on wgmma against its plain version, with padded
+    masks, at T not a multiple of its 128-row tiles and at 1024; two runs
+    give the same bits (no atomics in any sum)."""
+    K = 5
+    args, dout = _wn_train_inputs(device, 3, T, L)
+    _, xs = wn_stack_train.wn_stack_train_plain_fwd(*args, K, True)
+    grads = wn_stack_train._launch_bwd(dout, xs, *args[1:5], K, True)
+    torch.cuda.synchronize()
+    _held(grads, wn_stack_train.wn_stack_train_plain_bwd(dout, xs, *args[1:5], K, True), True)
+    again = wn_stack_train._launch_bwd(dout, xs, *args[1:5], K, True)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def _device_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages() if e.self_device_time_total > 0)
+
+
+@pytest.mark.cuda
+def test_wn_stack_train_backward_kernels_by_precision(device):
+    """bf16 operands take the wgmma kernels, f32 the 3-pass TF32 mma.sync ones."""
+    K = 5
+    args, dout = _wn_train_inputs(device, 2, 200, 2, seed=5)
+    _, xs = wn_stack_train.wn_stack_train_plain_fwd(*args, K, False)
+    names = {bf16: _device_kernels(lambda: wn_stack_train._launch_bwd(dout, xs, *args[1:5], K,
+                                                                        bf16))
+             for bf16 in (False, True)}
+    for kernel in ("bwd_act<false>", "bwd_dx<false>", "wgrad<false>"):
+        assert kernel in names[False] and kernel not in names[True]
+    for kernel in ("act_kernel", "dx_kernel", "wgrad_kernel"):
+        assert kernel in names[True] and kernel not in names[False]
+
+
+@pytest.mark.cuda
+def test_wn_stack_train_bf16_refuses_k7(device):
+    args, _ = _wn_train_inputs(device, 1, 40, 1, K=7)
+    with pytest.raises(ValueError, match="k <= 5"):
+        wn_stack_train.wn_stack_train(*args, 7, bf16_compute=True)
 
 
 @pytest.mark.cuda

@@ -440,6 +440,609 @@ const size_t DX_SMEM = ((size_t)(BM + 2 * MAXPAD) * LDD + KC * (C + 8)) * sizeof
 
 bool bad_k(int K) { return K % 2 == 0 || K / 2 > MAXPAD; }
 
+// ------------------------------------------------------ bf16 backward, wgmma
+//
+// The intermediates of a layer (x_l as read, z, d_rs, dacts) are kept in
+// bf16 as [B][channels/8][Tp][8]: each 8-channel chunk of a batch item is a
+// column of Tp rows of 16 bytes, so the 8 rows from any row on are one
+// contiguous core matrix of wgmma, whatever a tap's row shift, and one bulk
+// copy moves a chunk's rows.  Rows [HP, HP + T) hold t = 0 .. T−1, the rows
+// up to a whole number of TR-row tiles are written as zeros, and the HP
+// halo rows on each side stay zero (the wrapper allocates with zeros).
+
+namespace wg {
+
+constexpr int TR = 128;              // rows a block owns: one 64-row tile per warpgroup
+constexpr int NCT = 256;             // consumer threads (two warpgroups)
+constexpr int NT = NCT + 32;         // and the producer warp
+constexpr int HP = 8;                // zero halo rows on each side of a tiled intermediate
+constexpr int PAD = 2;               // k ≤ 5
+constexpr int XWR = TR + 2 * PAD + 1;  // rows per chunk of a shared window (odd: the
+constexpr int DSR = TR + 1;            // stores across chunks hit distinct banks)
+constexpr int ACT_SLOT = 8192;       // bf16 per ring slot of bwd_act: 16 KB
+constexpr int ACT_NS = 4;
+constexpr int DX_SLOT = 64 * C;      // a 64-deep k block of W_inᵀ: 24 KB
+constexpr int DX_NS = 4;
+constexpr int RK = 64;               // wgrad: rows a stage carries
+constexpr int PWR = RK + 2 * PAD;    // wgrad: rows per chunk of the P window
+constexpr int WG_NS = 6;             // wgrad stages
+constexpr int WGRAD_SPLITS = 7;      // wgrad row splits: 2 · 9 · 7 = 126 blocks at k = 5
+constexpr int TAPG = 3;              // wgrad: taps a block takes, one warpgroup each
+constexpr int WG_NT = TAPG * 128 + 32;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// the consumers' barrier (named barrier 1): the producer warp never joins it
+__device__ __forceinline__ void consumer_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+// an arrival by the threads where `pred` holds, predicated inside the asm:
+// a branch around it would be a divergent path between two wgmma, and
+// ptxas serializes every wgmma of a kernel that has one
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\n.reg .b64 state;\nsetp.ne.b32 p, %1, 0;\n"
+               "@p mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               ::"r"(smem_addr(bar)), "r"((int)pred) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+// one bulk copy (the tensor memory accelerator) global → shared, its bytes
+// completing on bar (announced there by mbar_expect)
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+// shared-memory matrix descriptor without swizzle: core matrices of 8 rows
+// × 16 contiguous bytes; lbo bytes between core matrices along K, sbo along
+// M or N (for a K-major operand the 16 bytes run along K, for an MN-major
+// one along M or N)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+// the compiler keeps the accumulators' reads and writes on their side of
+// the asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 rows × n columns, f32) += A (64 × 16) · B (16 × n), bf16, both from
+// shared memory by descriptor; the _mn form reads A and B MN-major
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128_mn(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+
+__device__ __forceinline__ float sigmoid_fast(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+__device__ __forceinline__ float tanh_fast(float v) {
+  return 1.f - __fdividef(2.f, __expf(2.f * v) + 1.f);
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7]));
+}
+__device__ __forceinline__ void load8(float (&v)[8], const float* __restrict__ p, float scale) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 c = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x * scale; v[1] = a.y * scale; v[2] = a.z * scale; v[3] = a.w * scale;
+  v[4] = c.x * scale; v[5] = c.y * scale; v[6] = c.z * scale; v[7] = c.w * scale;
+}
+
+// element (b, channel c, row t) of a tiled intermediate with `chunks` 8-channel chunks
+__device__ __forceinline__ size_t tiled(int b, int chunks, int c, int t, int Tp) {
+  return (((size_t)b * chunks + (c >> 3)) * Tp + HP + t) * 8 + (c & 7);
+}
+
+constexpr int RED = 3 * 8 * 128 + 128;   // bwd_act's column-sum scratch, floats
+
+// bwd_act for one layer: a block owns TR rows of one batch item and walks the
+// three 64-column chunks of C.  Per chunk, warpgroup wg's 64-row tile gets
+//   a  = Σ_tap x_l window (shifted by the tap) · W_in[tap][:, tanh and sigmoid columns]
+//        (wgmma m64n128k16: 64 tanh columns, then the same 64 sigmoid columns)
+//   dz = d_rs · W_rs[:, chunk]ᵀ (m64n64k16 over 2C)
+// and the gate, z and dacts in registers; the weights arrive prepared, k
+// block by k block, through the ring.
+__global__ void __launch_bounds__(NT, 1)
+act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
+           const float* __restrict__ cond, const __nv_bfloat16* __restrict__ w,
+           const float* __restrict__ dout, const float* __restrict__ dx_next,
+           __nv_bfloat16* __restrict__ xb, __nv_bfloat16* __restrict__ z,
+           __nv_bfloat16* __restrict__ d_rs, __nv_bfloat16* __restrict__ dacts,
+           float* __restrict__ part_dcond, float* __restrict__ part_db, int T, int L, int l,
+           int K) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xw = reinterpret_cast<__nv_bfloat16*>(smem);         // [C/8][XWR][8]
+  __nv_bfloat16* ds = xw + (C / 8) * XWR * 8;                         // [2C/8][DSR][8]
+  __nv_bfloat16* slots = ds + (C2 / 8) * DSR * 8;                     // the weight ring
+  float* red = reinterpret_cast<float*>(slots + ACT_NS * ACT_SLOT);   // column sums
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + RED);
+  uint64_t* empty = full + ACT_NS;
+  const int tid = threadIdx.x, pad = K / 2, b = blockIdx.y, tile = blockIdx.x, t0 = tile * TR;
+  const int Tp = gridDim.x * TR + 2 * HP;
+  const int per_chunk = 3 * K + 3;   // ring loads a chunk: K taps × 3 k blocks, 3 of W_rsᵀ
+  if (tid == 0) {
+    for (int s = 0; s < ACT_NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NCT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (__shfl_sync(0xffffffffu, tid >> 5, 0) == NCT / 32) {
+    // the producer warp: every k block of the three chunks, ACT_NS ahead
+    if (tid == NCT) {
+      for (int i = 0; i < 3 * per_chunk; ++i) {
+        const int slot = i % ACT_NS;
+        if (i >= ACT_NS) mbar_wait(empty + slot, ((i / ACT_NS) - 1) & 1);
+        mbar_expect(full + slot, ACT_SLOT * 2);
+        bulk_copy(slots + slot * ACT_SLOT, w + (size_t)i * ACT_SLOT, ACT_SLOT * 2, full + slot);
+      }
+    }
+    return;
+  }
+  const bool last = l == L - 1;
+  const size_t part = ((size_t)b * gridDim.x + tile) * C2;
+
+  // x_l's window [t0 − pad, t0 + TR + pad) in bf16, zeros outside [0, T);
+  // its own rows also to the tiled copy the weight gradient reads
+  const float* xl = xs + ((size_t)b * L + l) * T * C;
+  for (int i = tid; i < (TR + 2 * pad) * (C / 8); i += NCT) {
+    const int j = i % (C / 8), r = i / (C / 8), t = t0 - pad + r;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (t >= 0 && t < T) load8(v, xl + (size_t)t * C + 8 * j, 1.f);
+    const uint4 pk = pack8(v);
+    *reinterpret_cast<uint4*>(xw + (j * XWR + r) * 8) = pk;
+    if (r >= pad && r < pad + TR) *reinterpret_cast<uint4*>(xb + tiled(b, C / 8, 8 * j, t, Tp)) = pk;
+  }
+  // d_rs = [last ? g : dx_{l+1}·m | last ? 0 : g], g = dout·m: f32 column
+  // sums (→ db_rs), bf16 into shared memory (dz's A) and the tiled copy
+  if (tid < 4 * (C2 / 8)) {
+    const int j = tid % (C2 / 8), rg = tid / (C2 / 8);
+    const float* src = j < C / 8 && !last ? dx_next : dout;
+    const bool zero = j >= C / 8 && last;
+    float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int r = rg; r < TR; r += 4) {
+      const int t = t0 + r;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (t < T && !zero)
+        load8(v, src + ((size_t)b * T + t) * C + 8 * (j % (C / 8)), mask[(size_t)b * T + t]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum[e] += v[e];
+      const uint4 pk = pack8(v);
+      *reinterpret_cast<uint4*>(ds + (j * DSR + r) * 8) = pk;
+      *reinterpret_cast<uint4*>(d_rs + tiled(b, C2 / 8, 8 * j, t, Tp)) = pk;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[rg * C2 + 8 * j + e] = sum[e];
+  }
+  consumer_sync(NCT);
+  for (int col = tid; col < C2; col += NCT)
+    part_db[part + col] = ((red[col] + red[C2 + col]) + red[2 * C2 + col]) + red[3 * C2 + col];
+  fence_async_smem();
+  consumer_sync(NCT);
+
+  // the warpgroup index through a shuffle, so the compiler knows it is the
+  // same in every thread of a warp and the wgmma below sit on no divergent path
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const float* cl = cond + ((size_t)b * L + l) * C2;
+  uint32_t it = 0;
+  for (int jc = 0; jc < 3; ++jc) {
+    float acc[64], dz[32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dz[i] = 0.f;
+    fence_acc(acc);
+    fence_acc(dz);
+    int prev = -1;
+    // tap q / 3, input channels [64·(q % 3), +64): window row 64·wg + tap
+    for (int q = 0; q < 3 * K; ++q, ++it) {
+      const int slot = it % ACT_NS;
+      mbar_wait(full + slot, (it / ACT_NS) & 1);
+      const __nv_bfloat16* a = xw + (8 * (q % 3) * XWR + 64 * wg + q / 3) * 8;
+      const __nv_bfloat16* bw = slots + slot * ACT_SLOT;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_n128(acc, smem_desc(a + 2 * ks * XWR * 8, XWR * 16, 128),
+                   smem_desc(bw + 2 * ks * 64, 128, 1024));
+      wg_commit();
+      // the k block before is done with its slot once at most this one is pending
+      wg_wait<1>();
+      mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
+      prev = slot;
+    }
+    // d_rs columns [128·kb, +128)
+    for (int kb = 0; kb < 3; ++kb, ++it) {
+      const int slot = it % ACT_NS;
+      mbar_wait(full + slot, (it / ACT_NS) & 1);
+      const __nv_bfloat16* a = ds + (16 * kb * DSR + 64 * wg) * 8;
+      const __nv_bfloat16* bw = slots + slot * ACT_SLOT;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        wgmma_n64(dz, smem_desc(a + 2 * ks * DSR * 8, DSR * 16, 128),
+                  smem_desc(bw + 2 * ks * 64, 128, 2048));
+      wg_commit();
+      wg_wait<1>();
+      mbar_arrive_if(empty + prev, lane == 0);
+      prev = slot;
+    }
+    wg_wait<0>();
+    fence_acc(acc);
+    fence_acc(dz);
+    mbar_arrive_if(empty + prev, lane == 0);
+
+    // the gate, z and dacts of this thread's rows and columns
+    float s1[16], s2[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = 64 * jc + 8 * i + 2 * tq;
+      const float2 ct = *reinterpret_cast<const float2*>(cl + c);
+      const float2 cs = *reinterpret_cast<const float2*>(cl + C + c);
+      s1[2 * i] = s1[2 * i + 1] = s2[2 * i] = s2[2 * i + 1] = 0.f;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int t = t0 + 64 * wg + 16 * warp + g + 8 * hr;
+        const float valid = t < T ? 1.f : 0.f;
+        float zz[2], d1[2], d2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float th = tanh_fast(acc[4 * i + 2 * hr + e] + (e ? ct.y : ct.x));
+          const float sg = sigmoid_fast(acc[32 + 4 * i + 2 * hr + e] + (e ? cs.y : cs.x));
+          const float d = dz[4 * i + 2 * hr + e];
+          zz[e] = th * sg * valid;
+          d1[e] = d * sg * (1.f - th * th);
+          d2[e] = d * th * sg * (1.f - sg);
+          s1[2 * i + e] += d1[e];
+          s2[2 * i + e] += d2[e];
+        }
+        *reinterpret_cast<uint32_t*>(z + tiled(b, C / 8, c, t, Tp)) = pack2(zz[0], zz[1]);
+        *reinterpret_cast<uint32_t*>(dacts + tiled(b, C2 / 8, c, t, Tp)) = pack2(d1[0], d1[1]);
+        *reinterpret_cast<uint32_t*>(dacts + tiled(b, C2 / 8, C + c, t, Tp)) = pack2(d2[0], d2[1]);
+      }
+    }
+    // column sums over the warp's 16 rows (lanes of one tq), then into
+    // red[chunk][warp]; lanes other than g = 0 write to a spare row (a store
+    // under no branch, so the wgmma of the next chunk sit on no divergent path)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int sh = 4; sh < 32; sh <<= 1) {
+        s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], sh);
+        s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], sh);
+      }
+    float* row = red + (g == 0 ? (jc * 8 + (tid >> 5)) * 128 : 3 * 8 * 128);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        row[8 * i + 2 * tq + e] = s1[2 * i + e];
+        row[64 + 8 * i + 2 * tq + e] = s2[2 * i + e];
+      }
+  }
+  // dcond's per-tile partial: the 8 warps' sums in a fixed order
+  consumer_sync(NCT);
+  for (int col = tid; col < 3 * 128; col += NCT) {
+    const int jc = col >> 7, cc = col & 127;
+    float s = 0.f;
+    for (int w8 = 0; w8 < 8; ++w8) s += red[(jc * 8 + w8) * 128 + cc];
+    part_dcond[part + (cc >> 6) * C + 64 * jc + (cc & 63)] = s;
+  }
+}
+
+// bwd_dx for one layer: dx_l = Σ_tap dacts window (shifted) · W_in[tap]ᵀ
+// (+ dx_{l+1}·m below the last layer).  The block's dacts window comes by
+// 48 bulk copies, one per chunk, the prepared W_in[tap]ᵀ in 64-deep k blocks
+// through the ring; wgmma m64n192k16 over 2C per tap.
+__global__ void __launch_bounds__(NT, 1)
+dx_kernel(const __nv_bfloat16* __restrict__ dacts, const __nv_bfloat16* __restrict__ w,
+          const float* __restrict__ dx_next, const float* __restrict__ mask,
+          float* __restrict__ dx, int T, int K, int last) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* dw = reinterpret_cast<__nv_bfloat16*>(smem);   // [2C/8][XWR][8]
+  __nv_bfloat16* slots = dw + (C2 / 8) * XWR * 8;
+  uint64_t* win = reinterpret_cast<uint64_t*>(slots + DX_NS * DX_SLOT);
+  uint64_t* full = win + 1;
+  uint64_t* empty = full + DX_NS;
+  const int tid = threadIdx.x, pad = K / 2, b = blockIdx.y, t0 = blockIdx.x * TR;
+  const int Tp = gridDim.x * TR + 2 * HP;
+  if (tid == 0) {
+    mbar_init(win, 1);
+    for (int s = 0; s < DX_NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NCT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (__shfl_sync(0xffffffffu, tid >> 5, 0) == NCT / 32) {
+    if (tid == NCT) {
+      const uint32_t rows = TR + 2 * pad;
+      mbar_expect(win, (C2 / 8) * rows * 16);
+      for (int j = 0; j < C2 / 8; ++j)
+        bulk_copy(dw + j * XWR * 8, dacts + tiled(b, C2 / 8, 8 * j, t0 - pad, Tp), rows * 16, win);
+      for (int i = 0; i < 6 * K; ++i) {
+        const int slot = i % DX_NS;
+        if (i >= DX_NS) mbar_wait(empty + slot, ((i / DX_NS) - 1) & 1);
+        mbar_expect(full + slot, DX_SLOT * 2);
+        bulk_copy(slots + slot * DX_SLOT, w + (size_t)i * DX_SLOT, DX_SLOT * 2, full + slot);
+      }
+    }
+    return;
+  }
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  mbar_wait(win, 0);
+  float acc[96];
+#pragma unroll
+  for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  int prev = -1;
+  for (int q = 0; q < 6 * K; ++q) {
+    const int slot = q % DX_NS;
+    mbar_wait(full + slot, (q / DX_NS) & 1);
+    // acts[t] read x[t + tap − pad], so dx[t] collects dacts[t − tap + pad]:
+    // window row 64·wg + 2·pad − tap; dacts columns [64·(q % 6), +64)
+    const __nv_bfloat16* a = dw + (8 * (q % 6) * XWR + 64 * wg + 2 * pad - q / 6) * 8;
+    const __nv_bfloat16* bw = slots + slot * DX_SLOT;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_n192(acc, smem_desc(a + 2 * ks * XWR * 8, XWR * 16, 128),
+                 smem_desc(bw + 2 * ks * 64, 128, 1024));
+    wg_commit();
+    wg_wait<1>();
+    mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
+    prev = slot;
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  mbar_arrive_if(empty + prev, lane == 0);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int t = t0 + 64 * wg + 16 * warp + g + 8 * hr;
+    if (t >= T) continue;
+    const float m = last ? 0.f : mask[(size_t)b * T + t];
+#pragma unroll
+    for (int i = 0; i < 24; ++i) {
+      const size_t o = ((size_t)b * T + t) * C + 8 * i + 2 * tq;
+      float2 v = make_float2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+      if (!last) {
+        const float2 nx = *reinterpret_cast<const float2*>(dx_next + o);
+        v.x += nx.x * m;
+        v.y += nx.y * m;
+      }
+      *reinterpret_cast<float2*>(dx + o) = v;
+    }
+  }
+}
+
+// wgrad: out[s][tap·pch + c][n] = Σ_{rows of split s} P[b, t + tap − taps/2, c] · Q[b, t, n]
+// over tiled P (pch channels) and Q (2C), rows taken RK at a time.  A block
+// owns up to TAPG taps, 64 channels of P and 128 of Q; warpgroup w takes its
+// w-th tap (a warpgroup without one leaves), the producer warp copies each
+// stage's P window (its rows and the taps' halo) and Q rows, one bulk copy
+// per chunk.  Both operands are read MN-major: the K of
+// the products is the rows, and the 8 rows of a chunk from any row on are
+// one core matrix.  Fixed splits, summed by the wrapper in a fixed order.
+__global__ void __launch_bounds__(WG_NT, 1)
+wgrad_kernel(const __nv_bfloat16* __restrict__ P, const __nv_bfloat16* __restrict__ Q,
+             float* __restrict__ out, int pch, int taps, int B, int n_rk, size_t out_sstride) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int SP = 8 * PWR * 8, SQ = 16 * RK * 8, STAGE = SP + SQ;   // bf16 per stage
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + WG_NS * STAGE);
+  uint64_t* empty = full + WG_NS;
+  const int tid = threadIdx.x, pad = taps / 2, nc = pch / 64;
+  const int tap0 = TAPG * (blockIdx.x / nc), ntap = min(TAPG, taps - tap0);
+  const int c0 = (blockIdx.x % nc) * 64, n0 = blockIdx.y * 128, s = blockIdx.z;
+  const int Tp = n_rk * RK + 2 * HP, items = B * n_rk;
+  const int i0 = (int)((long long)s * items / WGRAD_SPLITS);
+  const int n = (int)((long long)(s + 1) * items / WGRAD_SPLITS) - i0;
+  if (tid == 0) {
+    for (int k = 0; k < WG_NS; ++k) {
+      mbar_init(full + k, 1);
+      mbar_init(empty + k, ntap * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (wg == TAPG) {
+    if (tid == TAPG * 128) {
+      const uint32_t prow = RK + 2 * pad;
+      for (int k = 0; k < n; ++k) {
+        const int item = i0 + k, bb = item / n_rk, t0 = (item % n_rk) * RK, st = k % WG_NS;
+        if (k >= WG_NS) mbar_wait(empty + st, ((k / WG_NS) - 1) & 1);
+        __nv_bfloat16* sp = stages + st * STAGE;
+        mbar_expect(full + st, 8 * prow * 16 + 16 * RK * 16);
+        for (int cc = 0; cc < 8; ++cc)
+          bulk_copy(sp + cc * PWR * 8, P + tiled(bb, pch / 8, c0 + 8 * cc, t0 - pad, Tp),
+                    prow * 16, full + st);
+        for (int qq = 0; qq < 16; ++qq)
+          bulk_copy(sp + SP + qq * RK * 8, Q + tiled(bb, C2 / 8, n0 + 8 * qq, t0, Tp), RK * 16,
+                    full + st);
+      }
+    }
+    return;
+  }
+  if (wg >= ntap) return;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  int prev = -1;
+  for (int k = 0; k < n; ++k) {
+    const int st = k % WG_NS;
+    mbar_wait(full + st, (k / WG_NS) & 1);
+    const __nv_bfloat16* sp = stages + st * STAGE;
+    wg_fence();
+    // tap tap0 + wg reads P's window from row tap0 + wg: t + tap − pad
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_n128_mn(acc, smem_desc(sp + (tap0 + wg + 16 * ks) * 8, 128, PWR * 16),
+                    smem_desc(sp + SP + 16 * ks * 8, 128, RK * 16));
+    wg_commit();
+    wg_wait<1>();
+    mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
+    prev = st;
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
+  float* o = out + (size_t)s * out_sstride + (size_t)((tap0 + wg) * pch + c0) * C2 + n0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = 16 * warp + g + 8 * hr;
+      *reinterpret_cast<float2*>(o + (size_t)m * C2 + 8 * i + 2 * tq) =
+          make_float2(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
+    }
+}
+
+constexpr size_t ACT_SMEM = ((size_t)(C / 8) * XWR * 8 + (size_t)(C2 / 8) * DSR * 8 +
+                             (size_t)ACT_NS * ACT_SLOT) * 2 + RED * 4 + 2 * ACT_NS * 8;
+constexpr size_t DX_SMEM = ((size_t)(C2 / 8) * XWR * 8 + (size_t)DX_NS * DX_SLOT) * 2 +
+                           (1 + 2 * DX_NS) * 8;
+constexpr size_t WG_SMEM = (size_t)WG_NS * (8 * PWR + 16 * RK) * 16 + 2 * WG_NS * 8;
+
+template <typename Kern>
+cudaError_t set_smem(Kern kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Layout: xs [B, L, T, C] (xs[:, 0] = x, filled by the caller); skip, out
@@ -510,5 +1113,56 @@ extern "C" int wn_train_wgrad(const float* P, const float* Q, float* out, int p_
   auto kernel = bf16 ? wgrad<true> : wgrad<false>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       P, Q, out, p_bstride, taps, Cp, N, B, T, rows, out_sstride);
+  return (int)cudaGetLastError();
+}
+
+// bf16 backward on wgmma (bf16 = 1 in the entries above takes the mma.sync
+// kernels; the wrapper sends bf16 here).  The tiled intermediates xb, z
+// [B][C/8][Tp][8] and d_rs, dacts [B][2C/8][Tp][8] are bf16 with Tp =
+// ceil(T / 128)·128 + 16, zeroed by the caller once per backward.  K odd ≤ 5.
+// w_act: the layer's W_in and W_rsᵀ k blocks (prepare_bwd_weights), w_dx: its
+// W_in[tap]ᵀ k blocks.  part_dcond, part_db: [B, ceil(T / 128), 2C].
+extern "C" int wn_train_bf16_act(const float* xs, const float* mask, const float* cond,
+                                 const void* w_act, const float* dout, const float* dx_next,
+                                 void* xb, void* z, void* d_rs, void* dacts, float* part_dcond,
+                                 float* part_db, int B, int T, int L, int l, int K,
+                                 void* stream) {
+  if (K % 2 == 0 || K / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
+  cudaError_t err = wg::set_smem(wg::act_kernel, wg::ACT_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + wg::TR - 1) / wg::TR, B);
+  wg::act_kernel<<<grid, wg::NT, wg::ACT_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      xs, mask, cond, static_cast<const __nv_bfloat16*>(w_act), dout, dx_next,
+      static_cast<__nv_bfloat16*>(xb), static_cast<__nv_bfloat16*>(z),
+      static_cast<__nv_bfloat16*>(d_rs), static_cast<__nv_bfloat16*>(dacts), part_dcond,
+      part_db, T, L, l, K);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wn_train_bf16_dx(const void* dacts, const void* w_dx, const float* dx_next,
+                                const float* mask, float* dx, int B, int T, int K, int last,
+                                void* stream) {
+  if (K % 2 == 0 || K / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
+  cudaError_t err = wg::set_smem(wg::dx_kernel, wg::DX_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + wg::TR - 1) / wg::TR, B);
+  wg::dx_kernel<<<grid, wg::NT, wg::DX_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(dacts), static_cast<const __nv_bfloat16*>(w_dx),
+      dx_next, mask, dx, T, K, last);
+  return (int)cudaGetLastError();
+}
+
+// out: WGRAD_SPLITS partials of [taps·pch, 2C], out_sstride floats apart;
+// P tiled with pch channels (a multiple of 64), Q tiled with 2C.
+extern "C" int wn_train_bf16_wgrad(const void* P, const void* Q, float* out, int pch, int taps,
+                                   int B, int T, long long out_sstride, void* stream) {
+  if (pch % 64 || taps % 2 == 0 || taps / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
+  cudaError_t err = wg::set_smem(wg::wgrad_kernel, wg::WG_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int n_rk = (T + wg::TR - 1) / wg::TR * (wg::TR / wg::RK);
+  dim3 grid((taps + wg::TAPG - 1) / wg::TAPG * (pch / 64), C2 / 128, wg::WGRAD_SPLITS);
+  wg::wgrad_kernel<<<grid, wg::WG_NT, wg::WG_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(P), static_cast<const __nv_bfloat16*>(Q), out, pch,
+      taps, B, n_rk, (size_t)out_sstride);
   return (int)cudaGetLastError();
 }

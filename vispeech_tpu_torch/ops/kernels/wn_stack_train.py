@@ -22,6 +22,7 @@ accumulator, carry and gate stays f32, as in the TPU kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -102,7 +103,167 @@ def wn_stack_train_plain_bwd(dout, xs, mask, cond, w_in, w_rs, kernel_size: int,
 
 
 _SUPPORTED_C = 192
-WGRAD_SPLITS = 4   # row splits of each weight-gradient product (fixed: deterministic sums)
+WGRAD_SPLITS = 4   # row splits of each f32 weight-gradient product (fixed: deterministic sums)
+
+# The bf16 backward on wgmma (csrc/wn_stack_train.cu, namespace wg)
+TILE_ROWS = 128          # rows a bwd_act or bwd_dx block owns (wg::TR)
+HALO_ROWS = 8            # zero rows on each side of a tiled intermediate (wg::HP)
+WGRAD_ROWS = 64          # rows a weight-gradient stage carries (wg::RK)
+WGRAD_SPLITS_BF16 = 7    # row splits of each bf16 weight-gradient product (wg::WGRAD_SPLITS)
+WGRAD_TAPS = 3           # taps a weight-gradient block takes (wg::TAPG)
+BF16_MAX_K = 5           # the bf16 kernels' largest kernel size (wg::PAD = 2)
+ACT_BLOCK = 8192         # bf16 per prepared k block of bwd_act (wg::ACT_SLOT)
+DX_BLOCK = 64 * _SUPPORTED_C   # ... of bwd_dx (wg::DX_SLOT)
+
+
+def tiled_rows(T: int):
+    """→ (Tr, Tp): T rounded up to whole ``TILE_ROWS`` tiles, and the rows a
+    tiled intermediate holds per chunk, with ``HALO_ROWS`` zeros each side."""
+    Tr = -(-T // TILE_ROWS) * TILE_ROWS
+    return Tr, Tr + 2 * HALO_ROWS
+
+
+def to_tiled(x: torch.Tensor, Tp: int) -> torch.Tensor:
+    """[B, T, ch] → the kernels' tiled layout [B, ch/8, Tp, 8]: chunk j of
+    batch item b holds channels [8j, 8j + 8) of rows t at HALO_ROWS + t, and
+    zeros elsewhere."""
+    B, T, ch = x.shape
+    out = x.new_zeros(B, ch // 8, Tp, 8)
+    out[:, :, HALO_ROWS:HALO_ROWS + T] = x.reshape(B, T, ch // 8, 8).transpose(1, 2)
+    return out
+
+
+def from_tiled(x: torch.Tensor, T: int, shift: int = 0) -> torch.Tensor:
+    """The tiled layout back to [B, T, ch], rows t + shift (zeros outside)."""
+    B, n, _, _ = x.shape
+    rows = x[:, :, HALO_ROWS + shift:HALO_ROWS + shift + T]
+    return rows.transpose(1, 2).reshape(B, T, 8 * n)
+
+
+class BwdWeights(NamedTuple):
+    """The bf16 backward's weights, laid out by ``prepare_bwd_weights`` in
+    the order its kernels stream them, as wgmma's K-major core matrices
+    ([n/8][k/8][8 n][8 k] per k block).  ``act`` [L, 3, (3k + 3)·ACT_BLOCK]:
+    per 64-column chunk jc of C, for each tap and each 64-deep k block the
+    W_in columns [64jc, +64) (tanh) and [C + 64jc, +64) (sigmoid), then
+    W_rs[:, 64jc:+64]ᵀ in three 128-deep k blocks.  ``dx`` [L, k, 6·DX_BLOCK]:
+    W_in[tap]ᵀ in six 64-deep k blocks over 2C."""
+
+    act: torch.Tensor
+    dx: torch.Tensor
+
+
+def prepare_bwd_weights(w_in: torch.Tensor, w_rs: torch.Tensor) -> BwdWeights:
+    """w_in [L, k, C, 2C], w_rs [L, C, 2C] → ``BwdWeights`` in bf16, made
+    once per backward call (the weights change at every optimizer step)."""
+    L, k, C, C2 = w_in.shape
+    with torch.no_grad():
+        wi = w_in.detach().to(torch.bfloat16)
+        # act, W_in: [L, k, C, 2 halves, 3 jc, 64] → [L, jc, k, kb, n/8, k/8, 8 n, 8 k]
+        a = wi.reshape(L, k, C, 2, 3, 64).permute(0, 4, 1, 2, 3, 5).reshape(L, 3, k, 3, 8, 8, 16, 8)
+        a = a.permute(0, 1, 2, 3, 6, 4, 7, 5).reshape(L, 3, 3 * k * ACT_BLOCK)
+        # act, W_rsᵀ: B[j][c] = W_rs[c][j]: [L, jc, n/8, 8 n, kb, k/8, 8 k] → [L, jc, kb, n/8, k/8, 8, 8]
+        r = w_rs.detach().to(torch.bfloat16).reshape(L, 3, 8, 8, 3, 16, 8)
+        r = r.permute(0, 1, 4, 2, 5, 3, 6).reshape(L, 3, 3 * ACT_BLOCK)
+        # dx, W_in[tap]ᵀ: B[j][c] = W_in[tap][c][j]: [L, k, n/8, 8 n, kb, k/8, 8 k] → [L, k, kb, ...]
+        d = wi.reshape(L, k, C // 8, 8, C2 // 64, 8, 8).permute(0, 1, 4, 2, 5, 3, 6)
+        return BwdWeights(torch.cat([a, r], dim=2).contiguous(),
+                          d.reshape(L, k, (C2 // 64) * DX_BLOCK).contiguous())
+
+
+def bwd_grid(B: int, T: int, kernel_size: int) -> dict:
+    """The bf16 backward's launches for one layer: bwd_act and bwd_dx
+    (blocks, threads), and the two weight-gradient products (blocks,
+    threads, and the rows of each split's (batch item, WGRAD_ROWS) items)."""
+    Tr, _ = tiled_rows(T)
+    items = B * Tr // WGRAD_ROWS
+    splits = [(s * items // WGRAD_SPLITS_BF16, (s + 1) * items // WGRAD_SPLITS_BF16)
+              for s in range(WGRAD_SPLITS_BF16)]
+    groups = -(-kernel_size // WGRAD_TAPS)
+    return {"act": ((Tr // TILE_ROWS, B), 288), "dx": ((Tr // TILE_ROWS, B), 288),
+            "wgrad_in": ((3 * groups, 3, WGRAD_SPLITS_BF16), WGRAD_TAPS * 128 + 32),
+            "wgrad_rs": ((3, 3, WGRAD_SPLITS_BF16), WGRAD_TAPS * 128 + 32), "splits": splits}
+
+
+def _act_block(block: torch.Tensor, n: int) -> torch.Tensor:
+    """One prepared k block ([n/8][k/8][8 n][8 k]) as its [k, n] matrix."""
+    return block.reshape(n // 8, -1, 8, 8).permute(1, 3, 0, 2).reshape(-1, n)
+
+
+def wn_stack_train_tiled_bwd(dout, xs, mask, cond, prep: BwdWeights, kernel_size: int):
+    """The bf16 backward as its wgmma kernels compute it, in plain PyTorch:
+    each layer's x_l, z, d_rs and dacts stored in bf16 in the tiled layout,
+    every product read from ``prep``'s k blocks and from windows of the
+    tiled intermediates, dcond and db_rs summed from the unrounded values,
+    and the weight gradients summed over ``bwd_grid``'s row splits in order.
+    Equals ``wn_stack_train_plain_bwd(..., bf16_compute=True)`` up to f32
+    summation order; the CPU tests hold the layouts to it."""
+    B, L, T, C = xs.shape
+    C2, pad, k = 2 * C, kernel_size // 2, kernel_size
+    Tr, Tp = tiled_rows(T)
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    valid = (torch.arange(Tr) < T).float()[None, :, None]
+
+    def rows(t):   # [B, T, ch] → [B, Tr, ch], zero rows past T
+        return F.pad(t, (0, 0, 0, Tr - T))
+
+    m = rows(mask)
+    g_out = rows(dout) * m
+    splits = bwd_grid(B, T, k)["splits"]
+    n_rk = Tr // WGRAD_ROWS
+    dx = None
+    dcond, dw_in, dw_rs, db_rs = [None] * L, [None] * L, [None] * L, [None] * L
+    for l in reversed(range(L)):
+        last = l == L - 1
+        xb = to_tiled(bf(rows(xs[:, l])), Tp)
+        dres = g_out if last else rows(dx) * m
+        d_rs = torch.cat([dres, torch.zeros_like(g_out) if last else g_out], dim=-1)
+        db_rs[l] = d_rs.sum(dim=(0, 1))[None]
+        d_rs_t = to_tiled(bf(d_rs), Tp)
+        d_rs_b = from_tiled(d_rs_t, Tr).float()
+        z, dacts = torch.zeros(B, Tr, C), torch.zeros(B, Tr, C2)
+        for jc in range(3):
+            blocks = prep.act[l, jc].reshape(-1, ACT_BLOCK).float()
+            a = torch.zeros(B, Tr, 128)
+            for tap in range(k):
+                x_tap = from_tiled(xb, Tr, tap - pad).float()
+                for kb in range(3):
+                    a = a + x_tap[..., 64 * kb:64 * kb + 64] @ _act_block(blocks[3 * tap + kb], 128)
+            dz = sum(d_rs_b[..., 128 * kb:128 * kb + 128] @ _act_block(blocks[3 * k + kb], 64)
+                     for kb in range(3))
+            cols = slice(64 * jc, 64 * jc + 64)
+            th = torch.tanh(a[..., :64] + cond[:, l, None, cols])
+            sg = torch.sigmoid(a[..., 64:] + cond[:, l, None, C + 64 * jc:C + 64 * jc + 64])
+            z[..., cols] = th * sg * valid
+            dacts[..., cols] = dz * sg * (1.0 - th * th)
+            dacts[..., C + 64 * jc:C + 64 * jc + 64] = dz * th * sg * (1.0 - sg)
+        dcond[l] = dacts.sum(dim=1)
+        z_t, dacts_t = to_tiled(bf(z), Tp), to_tiled(bf(dacts), Tp)
+        dx_conv = torch.zeros(B, T, C)
+        for tap in range(k):
+            d_tap = from_tiled(dacts_t, T, pad - tap).float()
+            for kb in range(C2 // 64):
+                w = _act_block(prep.dx[l, tap, kb * DX_BLOCK:(kb + 1) * DX_BLOCK].float(), C)
+                dx_conv = dx_conv + d_tap[..., 64 * kb:64 * kb + 64] @ w
+        dx = dx_conv if last else dx_conv + dres[:, :T]
+        # the weight gradients over each split's (batch item, WGRAD_ROWS) items
+        win, wrs = torch.zeros(k * C, C2), torch.zeros(C, C2)
+        for i0, i1 in splits:
+            p_in, p_rs = torch.zeros(k * C, C2), torch.zeros(C, C2)
+            for item in range(i0, i1):
+                b, t0 = item // n_rk, (item % n_rk) * WGRAD_ROWS
+                r = slice(HALO_ROWS + t0, HALO_ROWS + t0 + WGRAD_ROWS)
+                q = dacts_t[b, :, r].transpose(0, 1).reshape(WGRAD_ROWS, C2).float()
+                for tap in range(k):
+                    rp = slice(r.start + tap - pad, r.stop + tap - pad)
+                    p = xb[b, :, rp].transpose(0, 1).reshape(WGRAD_ROWS, C).float()
+                    p_in[tap * C:(tap + 1) * C] += p.t() @ q
+                p = z_t[b, :, r].transpose(0, 1).reshape(WGRAD_ROWS, C).float()
+                p_rs += p.t() @ d_rs_t[b, :, r].transpose(0, 1).reshape(WGRAD_ROWS, C2).float()
+            win, wrs = win + p_in, wrs + p_rs
+        dw_in[l], dw_rs[l] = win.reshape(k, C, C2), wrs
+    return (dx, torch.stack(dcond, dim=1), torch.stack(dw_in), torch.stack(dw_rs),
+            torch.stack(db_rs))
 
 
 def _fn(lib, name, n_ptr, n_int):
@@ -154,8 +315,60 @@ def _launch_fwd(x, mask, cond, w_in, w_rs, b_rs, kernel_size, bf16):
     return out, xs
 
 
+def _bf16_fns():
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return (_build.function("wn_stack_train", "wn_train_bf16_act", [P] * 12 + [I] * 5 + [P]),
+            _build.function("wn_stack_train", "wn_train_bf16_dx", [P] * 5 + [I] * 4 + [P]),
+            _build.function("wn_stack_train", "wn_train_bf16_wgrad",
+                            [P] * 3 + [I] * 4 + [ctypes.c_longlong, P]))
+
+
+def _launch_bwd_bf16(dout, xs, mask, cond, w_in, w_rs, kernel_size):
+    """The bf16 backward on wgmma: per layer bwd_act, bwd_dx and the two
+    weight-gradient products, over bf16 intermediates in the tiled layout."""
+    B, L, T, C = xs.shape
+    dev = xs.device
+    dout, mask, cond = map(_f32, (dout, mask, cond))
+    prep = prepare_bwd_weights(w_in, w_rs)
+    act, dxk, wgrad = _bf16_fns()
+    Tr, Tp = tiled_rows(T)
+    n_tiles = Tr // TILE_ROWS
+    xb, z = (torch.zeros(B, C // 8, Tp, 8, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    d_rs, dacts = (torch.zeros(B, 2 * C // 8, Tp, 8, dtype=torch.bfloat16, device=dev)
+                   for _ in range(2))
+    dx = [torch.empty(B, T, C, device=dev), torch.empty(B, T, C, device=dev)]
+    part_dcond = torch.empty(L, B, n_tiles, 2 * C, device=dev)
+    part_db = torch.empty_like(part_dcond)
+    part_win = torch.empty(WGRAD_SPLITS_BF16, L, kernel_size * C, 2 * C, device=dev)
+    part_wrs = torch.empty(WGRAD_SPLITS_BF16, L, C, 2 * C, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cur = 0
+    for l in reversed(range(L)):
+        nxt = dx[1 - cur]  # dL/dx_{l+1}; not read at the last layer
+        status = act(xs.data_ptr(), mask.data_ptr(), cond.data_ptr(), prep.act[l].data_ptr(),
+                     dout.data_ptr(), nxt.data_ptr(), xb.data_ptr(), z.data_ptr(),
+                     d_rs.data_ptr(), dacts.data_ptr(), part_dcond[l].data_ptr(),
+                     part_db[l].data_ptr(), B, T, L, l, kernel_size, stream)
+        _build.check(status, "wn_stack_train backward (gate)")
+        status = dxk(dacts.data_ptr(), prep.dx[l].data_ptr(), nxt.data_ptr(), mask.data_ptr(),
+                     dx[cur].data_ptr(), B, T, kernel_size, int(l == L - 1), stream)
+        _build.check(status, "wn_stack_train backward (dx)")
+        for p, q, taps, part in ((xb, dacts, kernel_size, part_win), (z, d_rs, 1, part_wrs)):
+            status = wgrad(p.data_ptr(), q.data_ptr(), part[:, l].data_ptr(), C, taps, B, T,
+                           part.stride(0), stream)
+            _build.check(status, "wn_stack_train backward (weights)")
+        cur = 1 - cur
+    return (dx[1 - cur], part_dcond.sum(dim=2).transpose(0, 1),
+            part_win.sum(dim=0).reshape(L, kernel_size, C, 2 * C), part_wrs.sum(dim=0),
+            part_db.sum(dim=(1, 2))[:, None])
+
+
 def _launch_bwd(dout, xs, mask, cond, w_in, w_rs, kernel_size, bf16):
     global bwd_launches
+    if bf16:
+        grads = _launch_bwd_bf16(dout, xs, mask, cond, w_in, w_rs, kernel_size)
+        bwd_launches += 1
+        return grads
     B, L, T, C = xs.shape
     dev = xs.device
     dout, mask, cond, w_in, w_rs = map(_f32, (dout, mask, cond, w_in, w_rs))
@@ -236,5 +449,8 @@ def wn_stack_train(x, mask, cond, w_in, w_rs, b_rs, kernel_size: int,
     _check(x, mask, cond, w_in, w_rs, b_rs, kernel_size)
     if bf16_compute is None:
         bf16_compute = x.dtype == torch.bfloat16
+    if bf16_compute and x.device.type != "cpu" and kernel_size > BF16_MAX_K:
+        raise ValueError(f"wn_stack_train's bf16 backward takes k <= {BF16_MAX_K}; "
+                         f"got k={kernel_size}")
     return _WNStackTrain.apply(x, mask, cond, w_in, w_rs, b_rs, kernel_size,
                                bool(bf16_compute))
