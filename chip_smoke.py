@@ -515,8 +515,8 @@ def _op_name(key: str) -> str:
     """A device op's profiler key without its return type, namespace and
     arguments: ``void (anonymous namespace)::bwd_act<true>(float const*, ...)``
     → ``bwd_act<true>``."""
-    head = key.split("(float", 1)[0].split("(__nv", 1)[0].split("(int", 1)[0]
-    return head.replace("void ", "").replace("(anonymous namespace)::", "")[:60]
+    head = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return head.split("(", 1)[0][:60]
 
 
 E_BWD_SHAPE = (12, 1024, 16, 5)   # B, T, L, k: enc_q, the main path's largest E call
@@ -529,7 +529,7 @@ def e_bwd_breakdown(torch, dev, reps: int = 5) -> dict:
     layers; the wrapper's own copies, casts and sums), through
     ``_launch_fwd`` and ``_launch_bwd``, which every version of the wrapper
     has: a copy of this file in another checkout measures that one
-    (--e-bwd).  → {"ms", "device_ms", "ops": {name: [ms, launches]}}."""
+    (--e-bwd).  → {"ms", "device_ms", "ops": {name: [ms, launches]}, "grads"}."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -565,7 +565,8 @@ def e_bwd_breakdown(torch, dev, reps: int = 5) -> dict:
             t, n = ops.get(name, (0.0, 0))
             ops[name] = (t + e.self_device_time_total / 1e3 / reps, n + e.count // reps)
     return {"ms": ms, "device_ms": sum(t for t, _ in ops.values()),
-            "ops": {k: list(v) for k, v in sorted(ops.items(), key=lambda kv: -kv[1][0])}}
+            "ops": {k: list(v) for k, v in sorted(ops.items(), key=lambda kv: -kv[1][0])},
+            "grads": call()}
 
 
 def print_e_bwd(r: dict) -> None:
@@ -1129,6 +1130,7 @@ def main() -> int:
     if sys.argv[1:] == ["--e-bwd"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         r = e_bwd_breakdown(torch, dev)
+        r.pop("grads")
         print_e_bwd(r)
         print(json.dumps({"root": ROOT, "card": card_line(), **r}))
         return 0

@@ -14,7 +14,8 @@ import pytest
 from vispeech_tpu_torch.ops.kernels import _build
 
 TOOLS = {"ablate_wn_stack": "wn_stack", "ablate_mrf_stage": "mrf_stage",
-         "ablate_mrf_stage_folded": "mrf_stage_folded"}
+         "ablate_mrf_stage_folded": "mrf_stage_folded",
+         "ablate_wn_stack_train": "wn_stack_train"}
 
 
 @pytest.mark.parametrize("tool", sorted(TOOLS))

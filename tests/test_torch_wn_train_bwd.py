@@ -96,21 +96,20 @@ def test_constants_and_grid_are_the_kernels():
     src = _source()
     for name, value in (("TR", E.TILE_ROWS), ("HP", E.HALO_ROWS), ("RK", E.WGRAD_ROWS),
                         ("WGRAD_SPLITS", E.WGRAD_SPLITS_BF16), ("PAD", E.BF16_MAX_K // 2),
-                        ("ACT_SLOT", E.ACT_BLOCK), ("TAPG", E.WGRAD_TAPS)):
+                        ("ACT_SLOT", E.ACT_BLOCK), ("TAPG", E.WGRAD_GROUP)):
         assert int(_const(src, name)) == value, name
     assert _const(src, "DX_SLOT") == "64 * C" and E.DX_BLOCK == 64 * C
     assert "dim3 grid((T + wg::TR - 1) / wg::TR, B);" in src
-    assert ("dim3 grid((taps + wg::TAPG - 1) / wg::TAPG * (pch / 64), C2 / 128, "
-            "wg::WGRAD_SPLITS);") in src
-    assert "constexpr int WG_NT = TAPG * 128 + 32;" in src
+    assert "dim3 grid((K + wg::TAPG) / wg::TAPG * (C / 64), C2 / 128, wg::WGRAD_SPLITS);" in src
+    assert "constexpr int WG_NT = TAPG * 128 + 128;" in src
     assert "constexpr int NT = NCT + 32;" in src
     for B, T in ((1, 1), (2, 77), (12, 640), (12, 1000), (12, 1024), (3, 129)):
         grid = E.bwd_grid(B, T, 5)
         Tr, Tp = E.tiled_rows(T)
         assert Tr % E.TILE_ROWS == 0 and Tr - E.TILE_ROWS < T <= Tr and Tp == Tr + 16
         assert grid["act"] == grid["dx"] == ((Tr // E.TILE_ROWS, B), 288)
-        assert grid["wgrad_in"] == ((6, 3, 7), 3 * 128 + 32)
-        assert grid["wgrad_rs"] == ((3, 3, 7), 3 * 128 + 32)
+        assert grid["wgrad"] == ((6, 3, 7), 4 * 128)
+        assert E.bwd_grid(B, T, 3)["wgrad"][0] == (6, 3, 7)
         assert 6 * 3 * E.WGRAD_SPLITS_BF16 <= 132
         splits = grid["splits"]
         assert len(splits) == E.WGRAD_SPLITS_BF16 and splits[0][0] == 0

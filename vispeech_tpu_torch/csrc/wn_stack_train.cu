@@ -465,10 +465,10 @@ constexpr int DX_SLOT = 64 * C;      // a 64-deep k block of W_inᵀ: 24 KB
 constexpr int DX_NS = 4;
 constexpr int RK = 64;               // wgrad: rows a stage carries
 constexpr int PWR = RK + 2 * PAD;    // wgrad: rows per chunk of the P window
-constexpr int WG_NS = 6;             // wgrad stages
+constexpr int WG_STAGES = 8;         // wgrad ring: 8 stages of P, Q (4 of P, Q, Z, D)
 constexpr int WGRAD_SPLITS = 7;      // wgrad row splits: 2 · 9 · 7 = 126 blocks at k = 5
-constexpr int TAPG = 3;              // wgrad: taps a block takes, one warpgroup each
-constexpr int WG_NT = TAPG * 128 + 32;
+constexpr int TAPG = 3;              // wgrad: products a block takes, one warpgroup each
+constexpr int WG_NT = TAPG * 128 + 128;   // and a loader warpgroup
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -945,56 +945,100 @@ dx_kernel(const __nv_bfloat16* __restrict__ dacts, const __nv_bfloat16* __restri
   }
 }
 
-// wgrad: out[s][tap·pch + c][n] = Σ_{rows of split s} P[b, t + tap − taps/2, c] · Q[b, t, n]
-// over tiled P (pch channels) and Q (2C), rows taken RK at a time.  A block
-// owns up to TAPG taps, 64 channels of P and 128 of Q; warpgroup w takes its
-// w-th tap (a warpgroup without one leaves), the producer warp copies each
-// stage's P window (its rows and the taps' halo) and Q rows, one bulk copy
-// per chunk.  Both operands are read MN-major: the K of
-// the products is the rows, and the 8 rows of a chunk from any row on are
-// one core matrix.  Fixed splits, summed by the wrapper in a fixed order.
+// wgrad: the weight gradients of a layer as sums over row splits s,
+//   out_in[s][tap·pch + c][n] = Σ_{rows of s} P[b, t + tap − taps/2, c] · Q[b, t, n]
+//   out_rs[s][c][n]           = Σ_{rows of s} Z[b, t, c] · D[b, t, n]
+// (P = x_l, Q = dacts, Z = z, D = d_rs, all tiled), rows taken RK at a time.
+// The taps + 1 products go to blocks NWG at a time (at k = 5: taps 0–2, then
+// taps 3–4 and dW_rs); a block owns 64 channels of P and Z and 128 of Q and
+// D, one consumer warpgroup a product.  A loader warpgroup copies each
+// stage (the P window with the taps' halo, Q rows, and Z, D rows where the
+// block has dW_rs) by cp.async, 16 bytes a thread, into a ring of stages.
+// Both operands are read MN-major: the K of the products is the rows, and
+// the 8 rows of a chunk from any row on are one core matrix.  Fixed
+// splits, summed by the wrapper in a fixed order.
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+// an arrival on bar once this thread's cp.async so far have landed
+__device__ __forceinline__ void cp_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 __global__ void __launch_bounds__(WG_NT, 1)
 wgrad_kernel(const __nv_bfloat16* __restrict__ P, const __nv_bfloat16* __restrict__ Q,
-             float* __restrict__ out, int pch, int taps, int B, int n_rk, size_t out_sstride) {
+             const __nv_bfloat16* __restrict__ Z, const __nv_bfloat16* __restrict__ D,
+             float* __restrict__ out_in, float* __restrict__ out_rs, int pch, int taps, int B,
+             int n_rk, size_t in_sstride, size_t rs_sstride) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int SP = 8 * PWR * 8, SQ = 16 * RK * 8, STAGE = SP + SQ;   // bf16 per stage
+  constexpr int SP = 8 * PWR * 8, SQ = 16 * RK * 8, SZ = 8 * RK * 8;   // bf16 per part
   __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(stages + WG_NS * STAGE);
-  uint64_t* empty = full + WG_NS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + WG_STAGES * (SP + SQ));
+  uint64_t* empty = full + WG_STAGES;
   const int tid = threadIdx.x, pad = taps / 2, nc = pch / 64;
-  const int tap0 = TAPG * (blockIdx.x / nc), ntap = min(TAPG, taps - tap0);
+  const int v0 = TAPG * (blockIdx.x / nc), nv = min(TAPG, taps + 1 - v0);
+  const bool has_rs = v0 + nv == taps + 1;
+  // stages of P and Q, or of P, Q, Z and D: the same bytes in all
+  const int stage = has_rs ? 2 * (SP + SQ) : SP + SQ, nst = has_rs ? WG_STAGES / 2 : WG_STAGES;
   const int c0 = (blockIdx.x % nc) * 64, n0 = blockIdx.y * 128, s = blockIdx.z;
   const int Tp = n_rk * RK + 2 * HP, items = B * n_rk;
   const int i0 = (int)((long long)s * items / WGRAD_SPLITS);
   const int n = (int)((long long)(s + 1) * items / WGRAD_SPLITS) - i0;
   if (tid == 0) {
-    for (int k = 0; k < WG_NS; ++k) {
-      mbar_init(full + k, 1);
-      mbar_init(empty + k, ntap * 4);
+    for (int k = 0; k < nst; ++k) {
+      mbar_init(full + k, 128);
+      mbar_init(empty + k, nv * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   if (wg == TAPG) {
-    if (tid == TAPG * 128) {
-      const uint32_t prow = RK + 2 * pad;
-      for (int k = 0; k < n; ++k) {
-        const int item = i0 + k, bb = item / n_rk, t0 = (item % n_rk) * RK, st = k % WG_NS;
-        if (k >= WG_NS) mbar_wait(empty + st, ((k / WG_NS) - 1) & 1);
-        __nv_bfloat16* sp = stages + st * STAGE;
-        mbar_expect(full + st, 8 * prow * 16 + 16 * RK * 16);
-        for (int cc = 0; cc < 8; ++cc)
-          bulk_copy(sp + cc * PWR * 8, P + tiled(bb, pch / 8, c0 + 8 * cc, t0 - pad, Tp),
-                    prow * 16, full + st);
-        for (int qq = 0; qq < 16; ++qq)
-          bulk_copy(sp + SP + qq * RK * 8, Q + tiled(bb, C2 / 8, n0 + 8 * qq, t0, Tp), RK * 16,
-                    full + st);
+    // the loader warpgroup: thread lt copies row lt % 64 of every other
+    // chunk, from chunk lt / 64 on (consecutive threads on consecutive rows),
+    // and one row of the P window's halo where lt < 16·pad
+    const int lt = tid - TAPG * 128, r = lt & 63, h = lt >> 6;
+    const size_t pstep = (size_t)2 * Tp * 8, pb = (size_t)(pch / 8) * Tp * 8,
+                 qb = (size_t)(C2 / 8) * Tp * 8;
+    const __nv_bfloat16* pk = P + ((size_t)(c0 / 8 + h) * Tp + HP + r) * 8;
+    const __nv_bfloat16* qk = Q + ((size_t)(n0 / 8 + h) * Tp + HP + r) * 8;
+    const __nv_bfloat16* zk = Z + ((size_t)(c0 / 8 + h) * Tp + HP + r) * 8;
+    const __nv_bfloat16* dk = D + ((size_t)(n0 / 8 + h) * Tp + HP + r) * 8;
+    const bool halo = lt < 16 * pad;
+    const int hc = halo ? lt / (2 * pad) : 0, hj = halo ? lt % (2 * pad) : 0;
+    const int hw = hj < pad ? hj : RK + hj;   // the window row: t0 − pad + hw
+    const __nv_bfloat16* hk = P + ((size_t)(c0 / 8 + hc) * Tp + HP - pad + hw) * 8;
+    for (int k = 0; k < n; ++k) {
+      const int item = i0 + k, bb = item / n_rk, t0 = (item % n_rk) * RK, st = k % nst;
+      if (k >= nst) mbar_wait(empty + st, ((k / nst) - 1) & 1);
+      __nv_bfloat16* sp = stages + st * stage;
+      const size_t po = bb * pb + (size_t)t0 * 8, qo = bb * qb + (size_t)t0 * 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cp16(sp + ((h + 2 * i) * PWR + pad + r) * 8, pk + po + i * pstep);
+      if (halo) cp16(sp + (hc * PWR + hw) * 8, hk + po);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) cp16(sp + SP + ((h + 2 * i) * RK + r) * 8, qk + qo + i * pstep);
+      if (has_rs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          cp16(sp + SP + SQ + ((h + 2 * i) * RK + r) * 8, zk + po + i * pstep);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          cp16(sp + SP + SQ + SZ + ((h + 2 * i) * RK + r) * 8, dk + qo + i * pstep);
       }
+      cp_arrive(full + st);
     }
     return;
   }
-  if (wg >= ntap) return;
+  if (wg >= nv) return;
+  // product v: tap v reads P's window from row v (t + v − pad) with Q; v = taps is dW_rs
+  const int v = v0 + wg;
+  const bool rs = v == taps;
+  const int a_off = rs ? SP + SQ : v * 8, b_off = rs ? SP + SQ + SZ : SP;
+  const uint32_t a_sbo = rs ? RK * 16 : PWR * 16;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   float acc[64];
 #pragma unroll
@@ -1002,15 +1046,15 @@ wgrad_kernel(const __nv_bfloat16* __restrict__ P, const __nv_bfloat16* __restric
   fence_acc(acc);
   int prev = -1;
   for (int k = 0; k < n; ++k) {
-    const int st = k % WG_NS;
-    mbar_wait(full + st, (k / WG_NS) & 1);
-    const __nv_bfloat16* sp = stages + st * STAGE;
+    const int st = k % nst;
+    mbar_wait(full + st, (k / nst) & 1);
+    fence_async_smem();   // the loaders' cp.async writes, seen by wgmma
+    const __nv_bfloat16* sp = stages + st * stage;
     wg_fence();
-    // tap tap0 + wg reads P's window from row tap0 + wg: t + tap − pad
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
-      wgmma_n128_mn(acc, smem_desc(sp + (tap0 + wg + 16 * ks) * 8, 128, PWR * 16),
-                    smem_desc(sp + SP + 16 * ks * 8, 128, RK * 16));
+      wgmma_n128_mn(acc, smem_desc(sp + a_off + 16 * ks * 8, 128, a_sbo),
+                    smem_desc(sp + b_off + 16 * ks * 8, 128, RK * 16));
     wg_commit();
     wg_wait<1>();
     mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
@@ -1019,7 +1063,8 @@ wgrad_kernel(const __nv_bfloat16* __restrict__ P, const __nv_bfloat16* __restric
   wg_wait<0>();
   fence_acc(acc);
   mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
-  float* o = out + (size_t)s * out_sstride + (size_t)((tap0 + wg) * pch + c0) * C2 + n0;
+  float* o = rs ? out_rs + (size_t)s * rs_sstride + (size_t)c0 * C2 + n0
+                : out_in + (size_t)s * in_sstride + (size_t)(v * pch + c0) * C2 + n0;
 #pragma unroll
   for (int i = 0; i < 16; ++i)
 #pragma unroll
@@ -1034,7 +1079,7 @@ constexpr size_t ACT_SMEM = ((size_t)(C / 8) * XWR * 8 + (size_t)(C2 / 8) * DSR 
                              (size_t)ACT_NS * ACT_SLOT) * 2 + RED * 4 + 2 * ACT_NS * 8;
 constexpr size_t DX_SMEM = ((size_t)(C2 / 8) * XWR * 8 + (size_t)DX_NS * DX_SLOT) * 2 +
                            (1 + 2 * DX_NS) * 8;
-constexpr size_t WG_SMEM = (size_t)WG_NS * (8 * PWR + 16 * RK) * 16 + 2 * WG_NS * 8;
+constexpr size_t WG_SMEM = (size_t)WG_STAGES * (8 * PWR + 16 * RK) * 16 + 2 * WG_STAGES * 8;
 
 template <typename Kern>
 cudaError_t set_smem(Kern kernel, size_t bytes) {
@@ -1152,17 +1197,22 @@ extern "C" int wn_train_bf16_dx(const void* dacts, const void* w_dx, const float
   return (int)cudaGetLastError();
 }
 
-// out: WGRAD_SPLITS partials of [taps·pch, 2C], out_sstride floats apart;
-// P tiled with pch channels (a multiple of 64), Q tiled with 2C.
-extern "C" int wn_train_bf16_wgrad(const void* P, const void* Q, float* out, int pch, int taps,
-                                   int B, int T, long long out_sstride, void* stream) {
-  if (pch % 64 || taps % 2 == 0 || taps / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
+// The layer's weight gradients: out_in WGRAD_SPLITS partials of [K·C, 2C]
+// (x_l tiled in xb with dacts), in_sstride floats apart; out_rs of [C, 2C]
+// (z with d_rs), rs_sstride apart.
+extern "C" int wn_train_bf16_wgrad(const void* xb, const void* dacts, const void* z,
+                                   const void* d_rs, float* out_in, float* out_rs, int B, int T,
+                                   int K, long long in_sstride, long long rs_sstride,
+                                   void* stream) {
+  if (K % 2 == 0 || K / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
   cudaError_t err = wg::set_smem(wg::wgrad_kernel, wg::WG_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int n_rk = (T + wg::TR - 1) / wg::TR * (wg::TR / wg::RK);
-  dim3 grid((taps + wg::TAPG - 1) / wg::TAPG * (pch / 64), C2 / 128, wg::WGRAD_SPLITS);
+  // the K + 1 products, TAPG a block
+  dim3 grid((K + wg::TAPG) / wg::TAPG * (C / 64), C2 / 128, wg::WGRAD_SPLITS);
   wg::wgrad_kernel<<<grid, wg::WG_NT, wg::WG_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(P), static_cast<const __nv_bfloat16*>(Q), out, pch,
-      taps, B, n_rk, (size_t)out_sstride);
+      static_cast<const __nv_bfloat16*>(xb), static_cast<const __nv_bfloat16*>(dacts),
+      static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(d_rs), out_in,
+      out_rs, C, K, B, n_rk, (size_t)in_sstride, (size_t)rs_sstride);
   return (int)cudaGetLastError();
 }

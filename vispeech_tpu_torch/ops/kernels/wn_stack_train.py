@@ -110,7 +110,7 @@ TILE_ROWS = 128          # rows a bwd_act or bwd_dx block owns (wg::TR)
 HALO_ROWS = 8            # zero rows on each side of a tiled intermediate (wg::HP)
 WGRAD_ROWS = 64          # rows a weight-gradient stage carries (wg::RK)
 WGRAD_SPLITS_BF16 = 7    # row splits of each bf16 weight-gradient product (wg::WGRAD_SPLITS)
-WGRAD_TAPS = 3           # taps a weight-gradient block takes (wg::TAPG)
+WGRAD_GROUP = 3          # products a weight-gradient block takes (wg::TAPG)
 BF16_MAX_K = 5           # the bf16 kernels' largest kernel size (wg::PAD = 2)
 ACT_BLOCK = 8192         # bf16 per prepared k block of bwd_act (wg::ACT_SLOT)
 DX_BLOCK = 64 * _SUPPORTED_C   # ... of bwd_dx (wg::DX_SLOT)
@@ -172,17 +172,18 @@ def prepare_bwd_weights(w_in: torch.Tensor, w_rs: torch.Tensor) -> BwdWeights:
 
 
 def bwd_grid(B: int, T: int, kernel_size: int) -> dict:
-    """The bf16 backward's launches for one layer: bwd_act and bwd_dx
-    (blocks, threads), and the two weight-gradient products (blocks,
-    threads, and the rows of each split's (batch item, WGRAD_ROWS) items)."""
+    """The bf16 backward's launches for one layer: bwd_act, bwd_dx and the
+    weight gradients (blocks, threads), and the (batch item, WGRAD_ROWS)
+    items each weight-gradient split sums over.  The k + 1 products (one a
+    tap, and dW_rs) go WGRAD_GROUP to a block."""
     Tr, _ = tiled_rows(T)
     items = B * Tr // WGRAD_ROWS
     splits = [(s * items // WGRAD_SPLITS_BF16, (s + 1) * items // WGRAD_SPLITS_BF16)
               for s in range(WGRAD_SPLITS_BF16)]
-    groups = -(-kernel_size // WGRAD_TAPS)
+    groups = -(-(kernel_size + 1) // WGRAD_GROUP)
     return {"act": ((Tr // TILE_ROWS, B), 288), "dx": ((Tr // TILE_ROWS, B), 288),
-            "wgrad_in": ((3 * groups, 3, WGRAD_SPLITS_BF16), WGRAD_TAPS * 128 + 32),
-            "wgrad_rs": ((3, 3, WGRAD_SPLITS_BF16), WGRAD_TAPS * 128 + 32), "splits": splits}
+            "wgrad": ((3 * groups, 3, WGRAD_SPLITS_BF16), WGRAD_GROUP * 128 + 128),
+            "splits": splits}
 
 
 def _act_block(block: torch.Tensor, n: int) -> torch.Tensor:
@@ -320,7 +321,7 @@ def _bf16_fns():
     return (_build.function("wn_stack_train", "wn_train_bf16_act", [P] * 12 + [I] * 5 + [P]),
             _build.function("wn_stack_train", "wn_train_bf16_dx", [P] * 5 + [I] * 4 + [P]),
             _build.function("wn_stack_train", "wn_train_bf16_wgrad",
-                            [P] * 3 + [I] * 4 + [ctypes.c_longlong, P]))
+                            [P] * 6 + [I] * 3 + [ctypes.c_longlong] * 2 + [P]))
 
 
 def _launch_bwd_bf16(dout, xs, mask, cond, w_in, w_rs, kernel_size):
@@ -353,10 +354,10 @@ def _launch_bwd_bf16(dout, xs, mask, cond, w_in, w_rs, kernel_size):
         status = dxk(dacts.data_ptr(), prep.dx[l].data_ptr(), nxt.data_ptr(), mask.data_ptr(),
                      dx[cur].data_ptr(), B, T, kernel_size, int(l == L - 1), stream)
         _build.check(status, "wn_stack_train backward (dx)")
-        for p, q, taps, part in ((xb, dacts, kernel_size, part_win), (z, d_rs, 1, part_wrs)):
-            status = wgrad(p.data_ptr(), q.data_ptr(), part[:, l].data_ptr(), C, taps, B, T,
-                           part.stride(0), stream)
-            _build.check(status, "wn_stack_train backward (weights)")
+        status = wgrad(xb.data_ptr(), dacts.data_ptr(), z.data_ptr(), d_rs.data_ptr(),
+                       part_win[:, l].data_ptr(), part_wrs[:, l].data_ptr(), B, T, kernel_size,
+                       part_win.stride(0), part_wrs.stride(0), stream)
+        _build.check(status, "wn_stack_train backward (weights)")
         cur = 1 - cur
     return (dx[1 - cur], part_dcond.sum(dim=2).transpose(0, 1),
             part_win.sum(dim=0).reshape(L, kernel_size, C, 2 * C), part_wrs.sum(dim=0),
