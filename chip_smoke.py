@@ -26,7 +26,8 @@ and check them.
 2b. E and F, forward and backward with every gradient, at the training
    shapes (B = 12, T = 1024): E with L = 16 and a speaker (enc_q) and
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
-   f32 and with bf16 operands.
+   f32 and with bf16 operands; E's bf16 backward at L = 16 also with its
+   device time by sub-kernel (torch.profiler) beside its total.
 3. Builds the engine at the full width of ``configs/config.json`` with
    weights drawn from a seed, resets the launch counters and serves three
    ``synthesize`` requests (one with explicit durations in the 1400-frame
@@ -61,6 +62,12 @@ and check them.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
 package is not beside this file, or when any phase fails.
+
+    python3 chip_smoke.py --e-bwd
+
+prints E's bf16 backward at B = 12, T = 1024, L = 16: its time a call and
+its device time by op (each sub-kernel over the 16 layers, the wrapper's own
+ops), as one JSON line last, for the checkout this file sits in.
 
     python3 chip_smoke.py --kernel-times
 
@@ -632,6 +639,10 @@ def check_train_kernels(torch, dev):
                 r = rows[key]
                 print(f"  {key} L={L} {dt}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            # the backward's device time by sub-kernel, beside its total
+            breakdown = e_bwd_breakdown(torch, dev)
+            breakdown.pop("grads")
+            print_e_bwd(breakdown)
 
     B, H, T, d = 12, 2, 1024, 96
     key_mask = (torch.arange(T, device=dev) < T - 37).float()[None].expand(B, T).contiguous()

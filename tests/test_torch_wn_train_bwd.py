@@ -99,15 +99,20 @@ def test_constants_and_grid_are_the_kernels():
                         ("ACT_SLOT", E.ACT_BLOCK), ("TAPG", E.WGRAD_GROUP)):
         assert int(_const(src, name)) == value, name
     assert _const(src, "DX_SLOT") == "64 * C" and E.DX_BLOCK == 64 * C
-    assert "dim3 grid((T + wg::TR - 1) / wg::TR, B);" in src
-    assert "dim3 grid((K + wg::TAPG) / wg::TAPG * (C / 64), C2 / 128, wg::WGRAD_SPLITS);" in src
+    assert "const int tiles = (T + wg::TR - 1) / wg::TR, n_rk = tiles * (wg::TR / wg::RK);" in src
+    assert "dim3 rows(tiles, B);" in src
+    assert "dim3 wgrid((K + wg::TAPG) / wg::TAPG * (C / 64), C2 / 128, wg::WGRAD_SPLITS);" in src
+    assert "act_kernel<<<rows, wg::ACT_NT" in src and "dx_kernel<<<rows, wg::NT" in src
+    assert "wgrad_kernel<<<wgrid, wg::WG_NT" in src
     assert "constexpr int WG_NT = TAPG * 128 + 128;" in src
     assert "constexpr int NT = NCT + 32;" in src
+    assert "constexpr int ACT_NT = NT + ACT_LOADERS;" in src and int(_const(src, "ACT_LOADERS")) == 96
     for B, T in ((1, 1), (2, 77), (12, 640), (12, 1000), (12, 1024), (3, 129)):
         grid = E.bwd_grid(B, T, 5)
         Tr, Tp = E.tiled_rows(T)
         assert Tr % E.TILE_ROWS == 0 and Tr - E.TILE_ROWS < T <= Tr and Tp == Tr + 16
-        assert grid["act"] == grid["dx"] == ((Tr // E.TILE_ROWS, B), 288)
+        assert grid["act"] == ((Tr // E.TILE_ROWS, B), 384)
+        assert grid["dx"] == ((Tr // E.TILE_ROWS, B), 288)
         assert grid["wgrad"] == ((6, 3, 7), 4 * 128)
         assert E.bwd_grid(B, T, 3)["wgrad"][0] == (6, 3, 7)
         assert 6 * 3 * E.WGRAD_SPLITS_BF16 <= 132

@@ -3,8 +3,8 @@
 // Replaces vispeech_tpu/ops/pallas/wn_stack_train.py::wn_stack_train (custom
 // VJP, bodies _fwd_kernel and _bwd_kernel).  The TPU kernels keep one batch
 // item's [T, C] state in VMEM and walk the layers as a sequential grid axis.
-// Here each layer is its own launch over blocks of BM = 32 frames with a
-// halo of k//2 frames, so any depth fits and no halo is recomputed:
+// Here each layer is its own launch over tiles of frames with a halo of k//2
+// frames, so any depth fits and no halo is recomputed:
 //
 //   forward, layer l:   a  = cond[b, l] + Σ_tap x_l[t + tap − k//2] · W_in[l, tap]
 //                       z  = tanh(a[:C]) · sigmoid(a[C:])
@@ -25,21 +25,47 @@
 //   The wrapper sums every partial in a fixed order: no atomics, so the
 //   gradients are the same bit for bit from run to run.
 //
-// BF16 = true rounds every matmul operand to bf16 (x_l, z, d_rs, dacts and
-// the weights); accumulators, the gate, the residual carry and the skip sum
-// stay f32, as the TPU kernel's bf16_compute does.
+// BF16 rounds every matmul operand to bf16 (x_l, z, d_rs, dacts and the
+// weights); accumulators, the gate, the residual carry, the skip sum and the
+// column sums stay f32, as the TPU kernel's bf16_compute does.
 //
-// Every product runs on the tensor cores as mma.sync m16n8k8 TF32.  A bf16
-// value is exact in TF32, so BF16 takes one pass; f32 takes the 3-pass split
-// a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi (kernel B's), which keeps f32
-// accuracy.  A block's 8 warps split its 32 frames in two m16 tiles and the
-// output columns in 4 groups; warp (m, n) owns n8 tiles n, n+4, ... of each
-// C-wide half, so the tanh and sigmoid halves of a gate column, and dz of
-// the same column, land in the same thread's registers.  Shared rows are
-// padded (C + 4, 2C + 4, N + 8 floats) so fragment loads hit 32 banks.
+// Forward (both precisions) and the f32 backward: every product on mma.sync
+// m16n8k8 TF32.  A bf16 value is exact in TF32, so the bf16 forward takes
+// one pass; f32 takes the 3-pass split a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi
+// (kernel B's), which keeps f32 accuracy.  A block's 8 warps split its
+// BM = 32 frames in two m16 tiles and the output columns in 4 groups; warp
+// (m, n) owns n8 tiles n, n+4, ... of each C-wide half, so the tanh and
+// sigmoid halves of a gate column, and dz of the same column, land in the
+// same thread's registers.  Shared rows are padded (C + 4, 2C + 4, N + 8
+// floats) so fragment loads hit 32 banks.
 //
-// Bound: at B = 12, T = 1024, C = 192, k = 5 a layer is ~11 GFLOP forward
-// and ~31 GFLOP backward against ~20 MB of activations: compute-bound.
+// The bf16 backward (namespace wg) runs every product on wgmma bf16 with f32
+// accumulators in registers.  What bounds it: at B = 12, T = 1024, C = 192,
+// k = 5 a layer is 30.8 GFLOP (31 µs at the bf16 peak) against ~60 MB of
+// intermediates and their reads; bwd_act and bwd_dx also stream the layer's
+// weights (0.9 and 0.7 MB) through every block of 128 frames.  Its design:
+// - z, d_rs, dacts and a bf16 copy of x_l are kept as [B][ch/8][Tp][8]
+//   columns of 16-byte rows with zero halo rows, so the 8 rows from any
+//   row on, shifted by any tap, are one core matrix of wgmma, K-major for
+//   the products over channels and MN-major for the weight gradients,
+//   whose K is the rows.
+// - bwd_act and bwd_dx: a block owns TR = 128 frames, one 64-row tile per
+//   consumer warpgroup; the weights come prepared once a call
+//   (ops/kernels/wn_stack_train.py::prepare_bwd_weights) as core-matrix k
+//   blocks that a producer warp streams by bulk copies into an mbarrier
+//   ring.  bwd_act walks the three 64-column chunks of C: the gate's 64
+//   tanh and 64 sigmoid columns in one m64n128k16 product so that both
+//   halves of a column meet in one thread, dz (m64n64k16) beside them, and
+//   z, dacts and their column sums in registers; three loader warps build
+//   d_rs while the gate's products run.  bwd_dx: m64n192k16 over k·2C.
+// - wgrad: the k + 1 products (a tap each, and dW_rs) three to a block, one
+//   consumer warpgroup each (m64n128k16, both operands MN-major), 64 rows a
+//   stage copied by a loader warpgroup with 16-byte cp.async into an
+//   8-stage ring, over fixed row splits.
+// - ptxas serializes every wgmma of a kernel that branches divergently
+//   between two of them or moves their accumulators: the warpgroup index
+//   goes through a shuffle, ring arrivals are predicated inside their asm,
+//   and the gate's column sums are stored under no branch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -461,6 +487,8 @@ constexpr int XWR = TR + 2 * PAD + 1;  // rows per chunk of a shared window (odd
 constexpr int DSR = TR + 1;            // stores across chunks hit distinct banks)
 constexpr int ACT_SLOT = 8192;       // bf16 per ring slot of bwd_act: 16 KB
 constexpr int ACT_NS = 4;
+constexpr int ACT_LOADERS = 96;      // bwd_act's loader threads: 3 warps
+constexpr int ACT_NT = NT + ACT_LOADERS;
 constexpr int DX_SLOT = 64 * C;      // a 64-deep k block of W_inᵀ: 24 KB
 constexpr int DX_NS = 4;
 constexpr int RK = 64;               // wgrad: rows a stage carries
@@ -668,7 +696,7 @@ constexpr int RED = 3 * 8 * 128 + 128;   // bwd_act's column-sum scratch, floats
 //   dz = d_rs · W_rs[:, chunk]ᵀ (m64n64k16 over 2C)
 // and the gate, z and dacts in registers; the weights arrive prepared, k
 // block by k block, through the ring.
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(ACT_NT, 1)
 act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
            const float* __restrict__ cond, const __nv_bfloat16* __restrict__ w,
            const float* __restrict__ dout, const float* __restrict__ dx_next,
@@ -683,6 +711,7 @@ act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
   float* red = reinterpret_cast<float*>(slots + ACT_NS * ACT_SLOT);   // column sums
   uint64_t* full = reinterpret_cast<uint64_t*>(red + RED);
   uint64_t* empty = full + ACT_NS;
+  uint64_t* dready = empty + ACT_NS;   // d_rs is in ds
   const int tid = threadIdx.x, pad = K / 2, b = blockIdx.y, tile = blockIdx.x, t0 = tile * TR;
   const int Tp = gridDim.x * TR + 2 * HP;
   const int per_chunk = 3 * K + 3;   // ring loads a chunk: K taps × 3 k blocks, 3 of W_rsᵀ
@@ -691,10 +720,12 @@ act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
       mbar_init(full + s, 1);
       mbar_init(empty + s, NCT / 32);
     }
+    mbar_init(dready, ACT_LOADERS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (__shfl_sync(0xffffffffu, tid >> 5, 0) == NCT / 32) {
+  const int warp_id = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  if (warp_id == NCT / 32) {
     // the producer warp: every k block of the three chunks, ACT_NS ahead
     if (tid == NCT) {
       for (int i = 0; i < 3 * per_chunk; ++i) {
@@ -706,28 +737,34 @@ act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
     }
     return;
   }
-  const bool last = l == L - 1;
-  const size_t part = ((size_t)b * gridDim.x + tile) * C2;
-
-  // x_l's window [t0 − pad, t0 + TR + pad) in bf16, zeros outside [0, T);
-  // its own rows also to the tiled copy the weight gradient reads
+  // x_l's window [t0 − pad, t0 + TR + pad) in bf16, zeros outside [0, T), by
+  // the consumers and the loader warps; its own rows also to the tiled copy
+  // the weight gradient reads
   const float* xl = xs + ((size_t)b * L + l) * T * C;
-  for (int i = tid; i < (TR + 2 * pad) * (C / 8); i += NCT) {
+  const int li = tid < NCT ? tid : tid - 32;   // 0 .. NCT + ACT_LOADERS − 1
+  for (int i = li; i < (TR + 2 * pad) * (C / 8); i += NCT + ACT_LOADERS) {
     const int j = i % (C / 8), r = i / (C / 8), t = t0 - pad + r;
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (t >= 0 && t < T) load8(v, xl + (size_t)t * C + 8 * j, 1.f);
     const uint4 pk = pack8(v);
     *reinterpret_cast<uint4*>(xw + (j * XWR + r) * 8) = pk;
-    if (r >= pad && r < pad + TR) *reinterpret_cast<uint4*>(xb + tiled(b, C / 8, 8 * j, t, Tp)) = pk;
+    if (r >= pad && r < pad + TR)
+      *reinterpret_cast<uint4*>(xb + tiled(b, C / 8, 8 * j, t, Tp)) = pk;
   }
-  // d_rs = [last ? g : dx_{l+1}·m | last ? 0 : g], g = dout·m: f32 column
-  // sums (→ db_rs), bf16 into shared memory (dz's A) and the tiled copy
-  if (tid < 4 * (C2 / 8)) {
-    const int j = tid % (C2 / 8), rg = tid / (C2 / 8);
+  fence_async_smem();
+  asm volatile("bar.sync 2, %0;\n" ::"n"(NCT + ACT_LOADERS) : "memory");
+  if (warp_id > NCT / 32) {
+    // the loader warps, while the consumers run the gate's products: d_rs =
+    // [last ? g : dx_{l+1}·m | last ? 0 : g], g = dout·m, its f32 column sums
+    // (→ db_rs), bf16 into shared memory (dz's A) and the tiled copy
+    const int lt = tid - NCT - 32;
+    const bool last = l == L - 1;
+    const int j = lt % (C2 / 8), rg = lt / (C2 / 8);
     const float* src = j < C / 8 && !last ? dx_next : dout;
     const bool zero = j >= C / 8 && last;
     float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int r = rg; r < TR; r += 4) {
+#pragma unroll 8
+    for (int r = rg; r < TR; r += ACT_LOADERS / (C2 / 8)) {
       const int t = t0 + r;
       float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (t < T && !zero)
@@ -740,12 +777,14 @@ act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) red[rg * C2 + 8 * j + e] = sum[e];
+    asm volatile("bar.sync 3, %0;\n" ::"n"(ACT_LOADERS) : "memory");
+    const size_t part = ((size_t)b * gridDim.x + tile) * C2;
+    for (int col = lt; col < C2; col += ACT_LOADERS)
+      part_db[part + col] = red[col] + red[C2 + col];
+    fence_async_smem();
+    mbar_arrive_if(dready, true);
+    return;
   }
-  consumer_sync(NCT);
-  for (int col = tid; col < C2; col += NCT)
-    part_db[part + col] = ((red[col] + red[C2 + col]) + red[2 * C2 + col]) + red[3 * C2 + col];
-  fence_async_smem();
-  consumer_sync(NCT);
 
   // the warpgroup index through a shuffle, so the compiler knows it is the
   // same in every thread of a warp and the wgmma below sit on no divergent path
@@ -779,7 +818,8 @@ act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
       mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
       prev = slot;
     }
-    // d_rs columns [128·kb, +128)
+    // d_rs columns [128·kb, +128), once the loaders have written them
+    mbar_wait(dready, 0);
     for (int kb = 0; kb < 3; ++kb, ++it) {
       const int slot = it % ACT_NS;
       mbar_wait(full + slot, (it / ACT_NS) & 1);
@@ -854,7 +894,7 @@ act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
     const int jc = col >> 7, cc = col & 127;
     float s = 0.f;
     for (int w8 = 0; w8 < 8; ++w8) s += red[(jc * 8 + w8) * 128 + cc];
-    part_dcond[part + (cc >> 6) * C + 64 * jc + (cc & 63)] = s;
+    part_dcond[((size_t)b * gridDim.x + tile) * C2 + (cc >> 6) * C + 64 * jc + (cc & 63)] = s;
   }
 }
 
@@ -1076,7 +1116,7 @@ wgrad_kernel(const __nv_bfloat16* __restrict__ P, const __nv_bfloat16* __restric
 }
 
 constexpr size_t ACT_SMEM = ((size_t)(C / 8) * XWR * 8 + (size_t)(C2 / 8) * DSR * 8 +
-                             (size_t)ACT_NS * ACT_SLOT) * 2 + RED * 4 + 2 * ACT_NS * 8;
+                             (size_t)ACT_NS * ACT_SLOT) * 2 + RED * 4 + (2 * ACT_NS + 1) * 8;
 constexpr size_t DX_SMEM = ((size_t)(C2 / 8) * XWR * 8 + (size_t)DX_NS * DX_SLOT) * 2 +
                            (1 + 2 * DX_NS) * 8;
 constexpr size_t WG_SMEM = (size_t)WG_STAGES * (8 * PWR + 16 * RK) * 16 + 2 * WG_STAGES * 8;
@@ -1118,9 +1158,9 @@ extern "C" int wn_train_bwd_act(const float* xs, const float* mask, const float*
                                 const float* w_in, const float* w_rs_t, const float* dout,
                                 const float* dx_next, float* z, float* d_rs, float* dacts,
                                 float* part_dcond, float* part_db, int B, int T, int L, int l,
-                                int K, int bf16, void* stream) {
+                                int K, void* stream) {
   if (bad_k(K)) return (int)cudaErrorInvalidValue;
-  auto kernel = bf16 ? bwd_act<true> : bwd_act<false>;
+  auto kernel = bwd_act<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)ACT_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -1134,9 +1174,9 @@ extern "C" int wn_train_bwd_act(const float* xs, const float* mask, const float*
 // w_in_t: W_in[l]ᵀ per tap [K, 2C, C].  last = (l == L−1).
 extern "C" int wn_train_bwd_dx(const float* dacts, const float* w_in_t, const float* dx_next,
                                const float* mask, float* dx, int B, int T, int K, int last,
-                               int bf16, void* stream) {
+                               void* stream) {
   if (bad_k(K)) return (int)cudaErrorInvalidValue;
-  auto kernel = bf16 ? bwd_dx<true> : bwd_dx<false>;
+  auto kernel = bwd_dx<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)DX_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -1151,68 +1191,63 @@ extern "C" int wn_train_bwd_dx(const float* dacts, const float* w_in_t, const fl
 // 16-byte aligned.
 extern "C" int wn_train_wgrad(const float* P, const float* Q, float* out, int p_bstride,
                               int taps, int Cp, int N, int B, int T, int n_split,
-                              int out_sstride, int bf16, void* stream) {
+                              int out_sstride, void* stream) {
   if (Cp % WT || N % WT || n_split < 1) return (int)cudaErrorInvalidValue;
   const int rows = (B * T + n_split - 1) / n_split;
   dim3 grid(taps * Cp / WT, N / WT, n_split);
-  auto kernel = bf16 ? wgrad<true> : wgrad<false>;
+  auto kernel = wgrad<false>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       P, Q, out, p_bstride, taps, Cp, N, B, T, rows, out_sstride);
   return (int)cudaGetLastError();
 }
 
-// bf16 backward on wgmma (bf16 = 1 in the entries above takes the mma.sync
-// kernels; the wrapper sends bf16 here).  The tiled intermediates xb, z
-// [B][C/8][Tp][8] and d_rs, dacts [B][2C/8][Tp][8] are bf16 with Tp =
-// ceil(T / 128)·128 + 16, zeroed by the caller once per backward.  K odd ≤ 5.
-// w_act: the layer's W_in and W_rsᵀ k blocks (prepare_bwd_weights), w_dx: its
-// W_in[tap]ᵀ k blocks.  part_dcond, part_db: [B, ceil(T / 128), 2C].
-extern "C" int wn_train_bf16_act(const float* xs, const float* mask, const float* cond,
-                                 const void* w_act, const float* dout, const float* dx_next,
-                                 void* xb, void* z, void* d_rs, void* dacts, float* part_dcond,
-                                 float* part_db, int B, int T, int L, int l, int K,
-                                 void* stream) {
+// The bf16 backward on wgmma, every layer in reverse (the three entries above
+// are the f32 backward's).  Per layer: bwd_act, bwd_dx, and the weight
+// gradients.  K odd ≤ 5.
+//   xs [B, L, T, C], mask [B, T], cond [B, L, 2C], dout [B, T, C]: f32.
+//   w_act [L, 3, (3K + 3)·8192], w_dx [L, K, 6·64·C]: prepare_bwd_weights (bf16).
+//   dx0, dx1 [B, T, C] f32: dL/dx_l, alternating from the last layer; the
+//     input's gradient ends in dx0 when L is odd, else in dx1.
+//   xb, z [B, C/8, Tp, 8], d_rs, dacts [B, 2C/8, Tp, 8]: bf16 scratch with Tp =
+//     ceil(T / 128)·128 + 16, zeroed by the caller.
+//   part_dcond, part_db [L, B, ceil(T / 128), 2C]; part_win [S, L, K·C, 2C],
+//   part_wrs [S, L, C, 2C] f32, S = WGRAD_SPLITS: partial sums the caller
+//     adds up in a fixed order.
+extern "C" int wn_train_bf16_backward(const float* xs, const float* mask, const float* cond,
+                                      const void* w_act, const void* w_dx, const float* dout,
+                                      float* dx0, float* dx1, void* xb, void* z, void* d_rs,
+                                      void* dacts, float* part_dcond, float* part_db,
+                                      float* part_win, float* part_wrs, int B, int T, int L,
+                                      int K, void* stream) {
+  using bf = __nv_bfloat16;
   if (K % 2 == 0 || K / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
   cudaError_t err = wg::set_smem(wg::act_kernel, wg::ACT_SMEM);
+  if (err == cudaSuccess) err = wg::set_smem(wg::dx_kernel, wg::DX_SMEM);
+  if (err == cudaSuccess) err = wg::set_smem(wg::wgrad_kernel, wg::WG_SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + wg::TR - 1) / wg::TR, B);
-  wg::act_kernel<<<grid, wg::NT, wg::ACT_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      xs, mask, cond, static_cast<const __nv_bfloat16*>(w_act), dout, dx_next,
-      static_cast<__nv_bfloat16*>(xb), static_cast<__nv_bfloat16*>(z),
-      static_cast<__nv_bfloat16*>(d_rs), static_cast<__nv_bfloat16*>(dacts), part_dcond,
-      part_db, T, L, l, K);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int wn_train_bf16_dx(const void* dacts, const void* w_dx, const float* dx_next,
-                                const float* mask, float* dx, int B, int T, int K, int last,
-                                void* stream) {
-  if (K % 2 == 0 || K / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
-  cudaError_t err = wg::set_smem(wg::dx_kernel, wg::DX_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + wg::TR - 1) / wg::TR, B);
-  wg::dx_kernel<<<grid, wg::NT, wg::DX_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(dacts), static_cast<const __nv_bfloat16*>(w_dx),
-      dx_next, mask, dx, T, K, last);
-  return (int)cudaGetLastError();
-}
-
-// The layer's weight gradients: out_in WGRAD_SPLITS partials of [K·C, 2C]
-// (x_l tiled in xb with dacts), in_sstride floats apart; out_rs of [C, 2C]
-// (z with d_rs), rs_sstride apart.
-extern "C" int wn_train_bf16_wgrad(const void* xb, const void* dacts, const void* z,
-                                   const void* d_rs, float* out_in, float* out_rs, int B, int T,
-                                   int K, long long in_sstride, long long rs_sstride,
-                                   void* stream) {
-  if (K % 2 == 0 || K / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
-  cudaError_t err = wg::set_smem(wg::wgrad_kernel, wg::WG_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int n_rk = (T + wg::TR - 1) / wg::TR * (wg::TR / wg::RK);
-  // the K + 1 products, TAPG a block
-  dim3 grid((K + wg::TAPG) / wg::TAPG * (C / 64), C2 / 128, wg::WGRAD_SPLITS);
-  wg::wgrad_kernel<<<grid, wg::WG_NT, wg::WG_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(xb), static_cast<const __nv_bfloat16*>(dacts),
-      static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(d_rs), out_in,
-      out_rs, C, K, B, n_rk, (size_t)in_sstride, (size_t)rs_sstride);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (T + wg::TR - 1) / wg::TR, n_rk = tiles * (wg::TR / wg::RK);
+  const size_t act_l = (size_t)3 * (3 * K + 3) * wg::ACT_SLOT, dx_l = (size_t)K * 6 * wg::DX_SLOT;
+  const size_t part_l = (size_t)B * tiles * C2, win_l = (size_t)K * C * C2, wrs_l = (size_t)C * C2;
+  dim3 rows(tiles, B);
+  // the K + 1 products of the weight gradients, TAPG a block
+  dim3 wgrid((K + wg::TAPG) / wg::TAPG * (C / 64), C2 / 128, wg::WGRAD_SPLITS);
+  float* dx[2] = {dx0, dx1};
+  for (int l = L - 1, cur = 0; l >= 0; --l, cur ^= 1) {
+    const float* next = dx[cur ^ 1];   // dL/dx_{l+1}; not read at the last layer
+    wg::act_kernel<<<rows, wg::ACT_NT, wg::ACT_SMEM, st>>>(
+        xs, mask, cond, static_cast<const bf*>(w_act) + l * act_l, dout, next,
+        static_cast<bf*>(xb), static_cast<bf*>(z), static_cast<bf*>(d_rs),
+        static_cast<bf*>(dacts), part_dcond + l * part_l, part_db + l * part_l, T, L, l, K);
+    wg::dx_kernel<<<rows, wg::NT, wg::DX_SMEM, st>>>(
+        static_cast<const bf*>(dacts), static_cast<const bf*>(w_dx) + l * dx_l, next, mask,
+        dx[cur], T, K, l == L - 1);
+    wg::wgrad_kernel<<<wgrid, wg::WG_NT, wg::WG_SMEM, st>>>(
+        static_cast<const bf*>(xb), static_cast<const bf*>(dacts), static_cast<const bf*>(z),
+        static_cast<const bf*>(d_rs), part_win + l * win_l, part_wrs + l * wrs_l, C, K, B, n_rk,
+        (size_t)L * win_l, (size_t)L * wrs_l);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

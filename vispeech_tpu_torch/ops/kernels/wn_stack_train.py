@@ -9,14 +9,18 @@ and the weight gradients; weight and bias gradients are per-tile partial
 sums reduced here in a fixed order, so a run is reproducible bit for bit.
 
 The CUDA kernels run one layer per launch with a halo of k//2 frames (no
-recomputed L·(k//2) halo as kernel B has, so any depth works): a forward
-layer, and per backward layer the gate and dacts, the input gradient, and
-the two weight-gradient products.  Compute-bound (~11 GFLOP per layer
-forward at B = 12, T = 1024, C = 192); every product on the tensor cores
-as mma.sync TF32, one pass for bf16 operands, three for f32.
+recomputed L·(k//2) halo as kernel B has, so any depth works).  The
+forward and the f32 backward run every product on the tensor cores as
+mma.sync TF32, one pass for bf16 operands, three for f32.  The bf16
+backward runs on wgmma (k <= 5): per layer the gate and dz, dx, and the
+weight gradients, over bf16 intermediates in a tiled layout
+(``to_tiled``), with its weights laid out once a call by
+``prepare_bwd_weights``; one call of the library runs every layer.
+``wn_stack_train_tiled_bwd`` is its data flow in plain PyTorch, which the
+CPU tests hold to the plain backward.
 
 ``bf16_compute``: every matmul operand is rounded to bf16, every
-accumulator, carry and gate stays f32, as in the TPU kernel.
+accumulator, carry, gate and column sum stays f32, as in the TPU kernel.
 """
 
 from __future__ import annotations
@@ -181,7 +185,7 @@ def bwd_grid(B: int, T: int, kernel_size: int) -> dict:
     splits = [(s * items // WGRAD_SPLITS_BF16, (s + 1) * items // WGRAD_SPLITS_BF16)
               for s in range(WGRAD_SPLITS_BF16)]
     groups = -(-(kernel_size + 1) // WGRAD_GROUP)
-    return {"act": ((Tr // TILE_ROWS, B), 288), "dx": ((Tr // TILE_ROWS, B), 288),
+    return {"act": ((Tr // TILE_ROWS, B), 384), "dx": ((Tr // TILE_ROWS, B), 288),
             "wgrad": ((3 * groups, 3, WGRAD_SPLITS_BF16), WGRAD_GROUP * 128 + 128),
             "splits": splits}
 
@@ -316,22 +320,17 @@ def _launch_fwd(x, mask, cond, w_in, w_rs, b_rs, kernel_size, bf16):
     return out, xs
 
 
-def _bf16_fns():
-    P, I = ctypes.c_void_p, ctypes.c_int
-    return (_build.function("wn_stack_train", "wn_train_bf16_act", [P] * 12 + [I] * 5 + [P]),
-            _build.function("wn_stack_train", "wn_train_bf16_dx", [P] * 5 + [I] * 4 + [P]),
-            _build.function("wn_stack_train", "wn_train_bf16_wgrad",
-                            [P] * 6 + [I] * 3 + [ctypes.c_longlong] * 2 + [P]))
+BF16_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _launch_bwd_bf16(dout, xs, mask, cond, w_in, w_rs, kernel_size):
-    """The bf16 backward on wgmma: per layer bwd_act, bwd_dx and the two
-    weight-gradient products, over bf16 intermediates in the tiled layout."""
+    """The bf16 backward on wgmma: one call runs every layer (bwd_act,
+    bwd_dx and the weight gradients each) over bf16 intermediates in the
+    tiled layout; the partial sums are added up here in a fixed order."""
     B, L, T, C = xs.shape
     dev = xs.device
     dout, mask, cond = map(_f32, (dout, mask, cond))
     prep = prepare_bwd_weights(w_in, w_rs)
-    act, dxk, wgrad = _bf16_fns()
     Tr, Tp = tiled_rows(T)
     n_tiles = Tr // TILE_ROWS
     xb, z = (torch.zeros(B, C // 8, Tp, 8, dtype=torch.bfloat16, device=dev) for _ in range(2))
@@ -342,43 +341,31 @@ def _launch_bwd_bf16(dout, xs, mask, cond, w_in, w_rs, kernel_size):
     part_db = torch.empty_like(part_dcond)
     part_win = torch.empty(WGRAD_SPLITS_BF16, L, kernel_size * C, 2 * C, device=dev)
     part_wrs = torch.empty(WGRAD_SPLITS_BF16, L, C, 2 * C, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    cur = 0
-    for l in reversed(range(L)):
-        nxt = dx[1 - cur]  # dL/dx_{l+1}; not read at the last layer
-        status = act(xs.data_ptr(), mask.data_ptr(), cond.data_ptr(), prep.act[l].data_ptr(),
-                     dout.data_ptr(), nxt.data_ptr(), xb.data_ptr(), z.data_ptr(),
-                     d_rs.data_ptr(), dacts.data_ptr(), part_dcond[l].data_ptr(),
-                     part_db[l].data_ptr(), B, T, L, l, kernel_size, stream)
-        _build.check(status, "wn_stack_train backward (gate)")
-        status = dxk(dacts.data_ptr(), prep.dx[l].data_ptr(), nxt.data_ptr(), mask.data_ptr(),
-                     dx[cur].data_ptr(), B, T, kernel_size, int(l == L - 1), stream)
-        _build.check(status, "wn_stack_train backward (dx)")
-        status = wgrad(xb.data_ptr(), dacts.data_ptr(), z.data_ptr(), d_rs.data_ptr(),
-                       part_win[:, l].data_ptr(), part_wrs[:, l].data_ptr(), B, T, kernel_size,
-                       part_win.stride(0), part_wrs.stride(0), stream)
-        _build.check(status, "wn_stack_train backward (weights)")
-        cur = 1 - cur
-    return (dx[1 - cur], part_dcond.sum(dim=2).transpose(0, 1),
+    fn = _build.function("wn_stack_train", "wn_train_bf16_backward", BF16_ARGTYPES)
+    status = fn(xs.data_ptr(), mask.data_ptr(), cond.data_ptr(), prep.act.data_ptr(),
+                prep.dx.data_ptr(), dout.data_ptr(), dx[0].data_ptr(), dx[1].data_ptr(),
+                xb.data_ptr(), z.data_ptr(), d_rs.data_ptr(), dacts.data_ptr(),
+                part_dcond.data_ptr(), part_db.data_ptr(), part_win.data_ptr(),
+                part_wrs.data_ptr(), B, T, L, kernel_size,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "wn_stack_train backward")
+    return (dx[(L - 1) % 2], part_dcond.sum(dim=2).transpose(0, 1),
             part_win.sum(dim=0).reshape(L, kernel_size, C, 2 * C), part_wrs.sum(dim=0),
             part_db.sum(dim=(1, 2))[:, None])
 
 
-def _launch_bwd(dout, xs, mask, cond, w_in, w_rs, kernel_size, bf16):
-    global bwd_launches
-    if bf16:
-        grads = _launch_bwd_bf16(dout, xs, mask, cond, w_in, w_rs, kernel_size)
-        bwd_launches += 1
-        return grads
+def _launch_bwd_f32(dout, xs, mask, cond, w_in, w_rs, kernel_size):
+    """The f32 backward: per layer the gate, dx and the two weight-gradient
+    products on 3-pass TF32 mma.sync, over f32 intermediates."""
     B, L, T, C = xs.shape
     dev = xs.device
     dout, mask, cond, w_in, w_rs = map(_f32, (dout, mask, cond, w_in, w_rs))
     w_in_t = w_in.transpose(-1, -2).contiguous()   # [L, k, 2C, C]
     w_rs_t = w_rs.transpose(-1, -2).contiguous()   # [L, 2C, C]
     lib = _build.load("wn_stack_train")
-    act = _fn(lib, "wn_train_bwd_act", 12, 6)
-    dxk = _fn(lib, "wn_train_bwd_dx", 5, 5)
-    wgrad = _fn(lib, "wn_train_wgrad", 3, 9)
+    act = _fn(lib, "wn_train_bwd_act", 12, 5)
+    dxk = _fn(lib, "wn_train_bwd_dx", 5, 4)
+    wgrad = _fn(lib, "wn_train_wgrad", 3, 8)
     tile = lib.wn_train_row_tile()
     n_tiles = -(-T // tile)
     z = torch.empty(B, T, C, device=dev)
@@ -396,24 +383,31 @@ def _launch_bwd(dout, xs, mask, cond, w_in, w_rs, kernel_size, bf16):
         status = act(xs.data_ptr(), mask.data_ptr(), cond.data_ptr(), w_in[l].data_ptr(),
                      w_rs_t[l].data_ptr(), dout.data_ptr(), nxt.data_ptr(), z.data_ptr(),
                      d_rs.data_ptr(), dacts.data_ptr(), part_dcond[l].data_ptr(),
-                     part_db[l].data_ptr(), B, T, L, l, kernel_size, int(bf16), stream)
+                     part_db[l].data_ptr(), B, T, L, l, kernel_size, stream)
         _build.check(status, "wn_stack_train backward (gate)")
         status = dxk(dacts.data_ptr(), w_in_t[l].data_ptr(), nxt.data_ptr(), mask.data_ptr(),
-                     dx[cur].data_ptr(), B, T, kernel_size, int(l == L - 1), int(bf16),
-                     stream)
+                     dx[cur].data_ptr(), B, T, kernel_size, int(l == L - 1), stream)
         _build.check(status, "wn_stack_train backward (dx)")
         # Σ over all B·T rows: shifted x_l with dacts → dW_in, z with d_rs → dW_rs
         for p, p_bstride, taps, q, part in ((xs[:, l], L * T * C, kernel_size, dacts, part_win),
                                             (z, T * C, 1, d_rs, part_wrs)):
             status = wgrad(p.data_ptr(), q.data_ptr(), part[:, l].data_ptr(), p_bstride,
-                           taps, C, 2 * C, B, T, WGRAD_SPLITS, part.stride(0), int(bf16),
-                           stream)
+                           taps, C, 2 * C, B, T, WGRAD_SPLITS, part.stride(0), stream)
             _build.check(status, "wn_stack_train backward (weights)")
         cur = 1 - cur
-    bwd_launches += 1
     return (dx[1 - cur], part_dcond.sum(dim=2).transpose(0, 1),
             part_win.sum(dim=0).reshape(L, kernel_size, C, 2 * C), part_wrs.sum(dim=0),
             part_db.sum(dim=(1, 2))[:, None])
+
+
+def _launch_bwd(dout, xs, mask, cond, w_in, w_rs, kernel_size, bf16):
+    """Kernel E's backward on the card: bf16 operands on wgmma, f32 on the
+    3-pass TF32 mma.sync kernels."""
+    global bwd_launches
+    launch = _launch_bwd_bf16 if bf16 else _launch_bwd_f32
+    grads = launch(dout, xs, mask, cond, w_in, w_rs, kernel_size)
+    bwd_launches += 1
+    return grads
 
 
 class _WNStackTrain(torch.autograd.Function):

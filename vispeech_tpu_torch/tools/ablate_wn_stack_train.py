@@ -57,8 +57,7 @@ def main() -> int:
     root = _build.BUILD_DIR / "ablate_wn_stack_train"
     root.mkdir(parents=True, exist_ok=True)
     libs = _ablate.build("wn_stack_train", VARIANTS, root)
-    symbols = dict(zip(("wn_train_bf16_act", "wn_train_bf16_dx", "wn_train_bf16_wgrad"),
-                       (fn.argtypes for fn in E._bf16_fns())))
+    symbols = {"wn_train_bf16_backward": E.BF16_ARGTYPES}
     full = None
     for name, lib in libs.items():
         _ablate.bind(lib, "wn_stack_train", symbols)
