@@ -742,14 +742,27 @@ act_kernel(const float* __restrict__ xs, const float* __restrict__ mask,
   // the weight gradient reads
   const float* xl = xs + ((size_t)b * L + l) * T * C;
   const int li = tid < NCT ? tid : tid - 32;   // 0 .. NCT + ACT_LOADERS − 1
-  for (int i = li; i < (TR + 2 * pad) * (C / 8); i += NCT + ACT_LOADERS) {
-    const int j = i % (C / 8), r = i / (C / 8), t = t0 - pad + r;
-    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (t >= 0 && t < T) load8(v, xl + (size_t)t * C + 8 * j, 1.f);
-    const uint4 pk = pack8(v);
-    *reinterpret_cast<uint4*>(xw + (j * XWR + r) * 8) = pk;
-    if (r >= pad && r < pad + TR)
-      *reinterpret_cast<uint4*>(xb + tiled(b, C / 8, 8 * j, t, Tp)) = pk;
+  // (XU pieces a thread in flight at once: the window comes from device memory)
+  constexpr int XU = 4, NL = NCT + ACT_LOADERS;
+  for (int base = li; base < (TR + 2 * pad) * (C / 8); base += XU * NL) {
+    float v[XU][8];
+#pragma unroll
+    for (int u = 0; u < XU; ++u) {
+      const int i = base + u * NL, r = i / (C / 8), t = t0 - pad + r;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[u][e] = 0.f;
+      if (r < TR + 2 * pad && t >= 0 && t < T)
+        load8(v[u], xl + (size_t)t * C + 8 * (i % (C / 8)), 1.f);
+    }
+#pragma unroll
+    for (int u = 0; u < XU; ++u) {
+      const int i = base + u * NL, j = i % (C / 8), r = i / (C / 8), t = t0 - pad + r;
+      if (r >= TR + 2 * pad) break;
+      const uint4 pk = pack8(v[u]);
+      *reinterpret_cast<uint4*>(xw + (j * XWR + r) * 8) = pk;
+      if (r >= pad && r < pad + TR)
+        *reinterpret_cast<uint4*>(xb + tiled(b, C / 8, 8 * j, t, Tp)) = pk;
+    }
   }
   fence_async_smem();
   asm volatile("bar.sync 2, %0;\n" ::"n"(NCT + ACT_LOADERS) : "memory");
