@@ -796,15 +796,18 @@ def serve(torch, dev, cfg, state_dict):
     return engine, counts, expect, requests, plans
 
 
-# the serving kernels' CUDA function names, as the profiler lists them
+# the kernels' CUDA function names, as the profiler lists them: the serving
+# kernels, and kernel E in training (its forward, its bf16 backward)
 KERNEL_FUNCS = {"rel_attention": "rel_attention_", "wn_stack": "wn_stack_kernel",
-                "mrf_stage": "mrf_stage_kernel", "mrf_stage_folded": "mrf_folded_kernel"}
+                "mrf_stage": "mrf_stage_kernel", "mrf_stage_folded": "mrf_folded_kernel",
+                "wn_stack_train_fwd": "fwd_layer<", "wn_stack_train_bwd": "wg::"}
 
 
 def profile(torch, label, fn, top):
     """``fn()`` once under torch.profiler: the device's busy share of its
-    wall time, the ``top`` device ops by time, and each serving kernel's
-    summed device time (phases 3, 3c, 3d and 4).  → {kernel: (ms, count)}."""
+    wall time, the ``top`` device ops by time, and the summed device time of
+    each kernel of ``KERNEL_FUNCS`` (phases 3, 3c, 3d and 4).  → {kernel:
+    (ms, count)}."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
