@@ -553,7 +553,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }

@@ -163,13 +163,17 @@ def prepare_bwd_weights(w_in: torch.Tensor, w_rs: torch.Tensor) -> BwdWeights:
     L, k, C, C2 = w_in.shape
     with torch.no_grad():
         wi = w_in.detach().to(torch.bfloat16)
-        # act, W_in: [L, k, C, 2 halves, 3 jc, 64] → [L, jc, k, kb, n/8, k/8, 8 n, 8 k]
-        a = wi.reshape(L, k, C, 2, 3, 64).permute(0, 4, 1, 2, 3, 5).reshape(L, 3, k, 3, 8, 8, 16, 8)
-        a = a.permute(0, 1, 2, 3, 6, 4, 7, 5).reshape(L, 3, 3 * k * ACT_BLOCK)
-        # act, W_rsᵀ: B[j][c] = W_rs[c][j]: [L, jc, n/8, 8 n, kb, k/8, 8 k] → [L, jc, kb, n/8, k/8, 8, 8]
+        # act, W_in: [L, k, C, 2 halves, 3 jc, 64]
+        #   → [L, jc, k, kb, n/8, k/8, 8 n, 8 k]
+        a = wi.reshape(L, k, C, 2, 3, 64).permute(0, 4, 1, 2, 3, 5)
+        a = a.reshape(L, 3, k, 3, 8, 8, 16, 8).permute(0, 1, 2, 3, 6, 4, 7, 5)
+        a = a.reshape(L, 3, 3 * k * ACT_BLOCK)
+        # act, W_rsᵀ: B[j][c] = W_rs[c][j]: [L, jc, n/8, 8 n, kb, k/8, 8 k]
+        #   → [L, jc, kb, n/8, k/8, 8 n, 8 k]
         r = w_rs.detach().to(torch.bfloat16).reshape(L, 3, 8, 8, 3, 16, 8)
         r = r.permute(0, 1, 4, 2, 5, 3, 6).reshape(L, 3, 3 * ACT_BLOCK)
-        # dx, W_in[tap]ᵀ: B[j][c] = W_in[tap][c][j]: [L, k, n/8, 8 n, kb, k/8, 8 k] → [L, k, kb, ...]
+        # dx, W_in[tap]ᵀ: B[j][c] = W_in[tap][c][j]: [L, k, n/8, 8 n, kb, k/8, 8 k]
+        #   → [L, k, kb, n/8, k/8, 8 n, 8 k]
         d = wi.reshape(L, k, C // 8, 8, C2 // 64, 8, 8).permute(0, 1, 4, 2, 5, 3, 6)
         return BwdWeights(torch.cat([a, r], dim=2).contiguous(),
                           d.reshape(L, k, (C2 // 64) * DX_BLOCK).contiguous())

@@ -37,19 +37,22 @@ VARIANTS = {
     "wgrad: 4 stages": [("constexpr int WG_STAGES = 8;", "constexpr int WG_STAGES = 4;")],
     "act: no wgmma": [(_ACT_MMA_X, _ACT_MMA_X.replace("ks < 4", "ks < 0")),
                       (_ACT_MMA_D, _ACT_MMA_D.replace("ks < 8", "ks < 0"))],
-    "act: no global loads": [("      if (r < TR + 2 * pad && t >= 0 && t < T)\n", "      if (false)\n"),
+    "act: no global loads": [("      if (r < TR + 2 * pad && t >= 0 && t < T)\n",
+                              "      if (false)\n"),
                              ("      if (t < T && !zero)\n", "      if (false)\n")],
     # an eighth of the gate's epilogue: with none, nothing reads the sums
     "act: 1/8 epilogue": [("    for (int i = 0; i < 8; ++i) {\n      const int c = 64 * jc",
                            "    for (int i = 0; i < 1; ++i) {\n      const int c = 64 * jc")],
     # the producers copy no weights, and nobody waits for them
     "act: no weight stream": [
-        ("        mbar_expect(full + slot, ACT_SLOT * 2);\n        bulk_copy(slots + slot * ACT_SLOT, "
-         "w + (size_t)i * ACT_SLOT, ACT_SLOT * 2, full + slot);\n", ""),
+        ("        mbar_expect(full + slot, ACT_SLOT * 2);\n"
+         "        bulk_copy(slots + slot * ACT_SLOT, w + (size_t)i * ACT_SLOT, ACT_SLOT * 2, "
+         "full + slot);\n", ""),
         ("      mbar_wait(full + slot, (it / ACT_NS) & 1);\n", "")],
     "dx: no weight stream": [
-        ("        mbar_expect(full + slot, DX_SLOT * 2);\n        bulk_copy(slots + slot * DX_SLOT, "
-         "w + (size_t)i * DX_SLOT, DX_SLOT * 2, full + slot);\n", ""),
+        ("        mbar_expect(full + slot, DX_SLOT * 2);\n"
+         "        bulk_copy(slots + slot * DX_SLOT, w + (size_t)i * DX_SLOT, DX_SLOT * 2, "
+         "full + slot);\n", ""),
         ("    mbar_wait(full + slot, (q / DX_NS) & 1);\n", "")],
     "dx: no wgmma": [("    for (int ks = 0; ks < 4; ++ks)\n      wgmma_n192(",
                       "    for (int ks = 0; ks < 0; ++ks)\n      wgmma_n192(")],
