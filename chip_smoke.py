@@ -26,8 +26,9 @@ and check them.
 2b. E and F, forward and backward with every gradient, at the training
    shapes (B = 12, T = 1024): E with L = 16 and a speaker (enc_q) and
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
-   f32 and with bf16 operands; E's bf16 backward at L = 16 also with its
-   device time by sub-kernel (torch.profiler) beside its total.
+   f32 and with bf16 operands; E's bf16 backward at L = 16 and F's at
+   T = 1024 also with their device time by sub-kernel (torch.profiler)
+   beside their totals.
 3. Builds the engine at the full width of ``configs/config.json`` with
    weights drawn from a seed, resets the launch counters and serves three
    ``synthesize`` requests (one with explicit durations in the 1400-frame
@@ -68,6 +69,13 @@ package is not beside this file, or when any phase fails.
 prints E's bf16 backward at B = 12, T = 1024, L = 16: its time a call and
 its device time by op (each sub-kernel over the 16 layers, the wrapper's own
 ops), as one JSON line last, for the checkout this file sits in.
+
+    python3 chip_smoke.py --f-bwd
+
+prints F's bf16 backward at B = 12, H = 2, d = 96, rate 0.1 with padded
+keys, at T = 1024, 640 and 128: per T its time a call and its device time
+by op (each kernel, the wrapper's own ops), as one JSON line last, for the
+checkout this file sits in.
 
     python3 chip_smoke.py --kernel-times
 
@@ -537,9 +545,6 @@ def e_bwd_breakdown(torch, dev, reps: int = 5) -> dict:
     ``_launch_fwd`` and ``_launch_bwd``, which every version of the wrapper
     has: a copy of this file in another checkout measures that one
     (--e-bwd).  → {"ms", "device_ms", "ops": {name: [ms, launches]}, "grads"}."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as trace
-
     from vispeech_tpu_torch.ops.kernels import wn_stack_train as E_
 
     B, T, L, K = E_BWD_SHAPE
@@ -557,7 +562,16 @@ def e_bwd_breakdown(torch, dev, reps: int = 5) -> dict:
             rn(L, 1, 2 * C, scale=0.1))
     dout = rn(B, T, C)
     _, xs = E_._launch_fwd(*args, K, True)
-    call = lambda: E_._launch_bwd(dout, xs, *args[1:5], K, True)  # noqa: E731
+    return _by_op(torch, lambda: E_._launch_bwd(dout, xs, *args[1:5], K, True), reps)
+
+
+def _by_op(torch, call, reps: int) -> dict:
+    """``call``'s time per call (events around back-to-back calls) and, from
+    torch.profiler, the device time per call of each op it launches.
+    → {"ms", "device_ms", "ops": {name: [ms, launches]}, "grads": call()}."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
     ms = time_ms(call, reps)
     call()
     torch.cuda.synchronize()
@@ -580,6 +594,43 @@ def print_e_bwd(r: dict) -> None:
     B, T, L, K = E_BWD_SHAPE
     print(f"  wn_stack_train_bwd B={B} T={T} L={L} bf16: {r['ms']:.4f} ms a call, "
           f"{r['device_ms']:.4f} ms of device time by the profiler:")
+    for name, (ms, n) in r["ops"].items():
+        print(f"    {ms:9.4f} ms  x{n:<4d} {name}")
+
+
+F_BWD_SHAPE = (12, 2, 96)         # B, H, d: the text side's attention layers
+F_BWD_T = (1024, 640, 128)         # phase 2b's T, a frame bucket, a phoneme length
+F_RATE = 0.1
+
+
+def f_bwd_breakdown(torch, dev, T: int, reps: int = 5) -> dict:
+    """Kernel F's bf16 backward at ``F_BWD_SHAPE`` and T, rate 0.1, bf16
+    operands, keys padded by 0, 37 and 74 in turn: its time per call and the
+    device time per call of each op it launches (the backward's kernels and
+    the wrapper's own casts, sums and allocations), through ``_launch_fwd``
+    and ``_launch_bwd``, which every version of the wrapper has: a copy of
+    this file in another checkout measures that one (--f-bwd)."""
+    from vispeech_tpu_torch.ops.kernels import rel_attention_train as F_
+
+    B, H, d = F_BWD_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 6)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    lengths = torch.tensor([T - 37 * (i % 3) for i in range(B)], device=dev)
+    key_mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
+    q, k, v, dout = (rn(B, H, T, d).bfloat16() for _ in range(4))
+    rel_k, rel_v = (rn(1, 9, d, scale=d ** -0.5).bfloat16() for _ in range(2))
+    out, lse = F_._launch_fwd(q, k, v, rel_k, rel_v, key_mask, 99, F_RATE, 4, True)
+    return _by_op(torch, lambda: F_._launch_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse,
+                                                99, F_RATE, 4, True), reps)
+
+
+def print_f_bwd(T: int, r: dict) -> None:
+    B, H, d = F_BWD_SHAPE
+    print(f"  rel_attention_train_bwd B={B} H={H} T={T} d={d} rate {F_RATE} bf16: "
+          f"{r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms of device time by the profiler:")
     for name, (ms, n) in r["ops"].items():
         print(f"    {ms:9.4f} ms  x{n:<4d} {name}")
 
@@ -678,6 +729,10 @@ def check_train_kernels(torch, dev):
             r = rows[key]
             print(f"  {key} T={T} {dt} rate {rate}: {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        # the backward's device time by sub-kernel, beside its total
+        breakdown = f_bwd_breakdown(torch, dev, T)
+        breakdown.pop("grads")
+        print_f_bwd(T, breakdown)
     return rows
 
 
@@ -797,10 +852,13 @@ def serve(torch, dev, cfg, state_dict):
 
 
 # the kernels' CUDA function names, as the profiler lists them: the serving
-# kernels, and kernel E in training (its forward, its bf16 backward)
-KERNEL_FUNCS = {"rel_attention": "rel_attention_", "wn_stack": "wn_stack_kernel",
-                "mrf_stage": "mrf_stage_kernel", "mrf_stage_folded": "mrf_folded_kernel",
-                "wn_stack_train_fwd": "fwd_layer<", "wn_stack_train_bwd": "wg::"}
+# kernels, and kernels E and F in training (forward; bf16 and f32 backward)
+KERNEL_FUNCS = {"rel_attention": ("rel_attention_",), "wn_stack": ("wn_stack_kernel",),
+                "mrf_stage": ("mrf_stage_kernel",), "mrf_stage_folded": ("mrf_folded_kernel",),
+                "wn_stack_train_fwd": ("fwd_layer<",),
+                "wn_stack_train_bwd": ("wg::",),
+                "rel_attention_train_fwd": ("fwd_kernel<",),
+                "rel_attention_train_bwd": ("bwd16::", "bwd_q_kernel<", "bwd_kv_kernel<")}
 
 
 def profile(torch, label, fn, top):
@@ -830,7 +888,7 @@ def profile(torch, label, fn, top):
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     totals = {}
     for name, func in KERNEL_FUNCS.items():
-        hits = [e for e in events if func in e.key]
+        hits = [e for e in events if any(f in e.key for f in func)]
         totals[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
                         sum(e.count for e in hits))
     print(f"  kernel device time over {label}: " + ", ".join(
@@ -1147,6 +1205,16 @@ def main() -> int:
         r.pop("grads")
         print_e_bwd(r)
         print(json.dumps({"root": ROOT, "card": card_line(), **r}))
+        return 0
+    if sys.argv[1:] == ["--f-bwd"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        by_t = {}
+        for T in F_BWD_T:
+            r = f_bwd_breakdown(torch, dev, T)
+            r.pop("grads")
+            print_f_bwd(T, r)
+            by_t[T] = r
+        print(json.dumps({"root": ROOT, "card": card_line(), "T": by_t}))
         return 0
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")

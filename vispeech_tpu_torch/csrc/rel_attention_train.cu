@@ -33,12 +33,16 @@
 // The forward rounds the online softmax's unnormalised weights, which agrees
 // with rounding the normalised ones to one bf16 rounding.
 //
-// Bound: 4·T²·d flops forward and ~10·T²·d backward per batch-head against
-// ~T·d·4·6 bytes: compute-bound.  f32 CUDA cores in this first version.
+// Bound: 4·T²·d flops forward and 10·T²·d backward per batch-head (five
+// T×T products) against ~T·d·4·6 bytes: compute-bound.  The forward and the
+// f32 backward (fwd, bwd_q, bwd_kv) run on f32 CUDA cores.  The bf16 backward
+// (namespace bwd16 below) runs its T×T products on wgmma bf16 with f32
+// accumulators, over bf16 copies of q̂, k, v and dO made once a call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -495,13 +499,641 @@ int prepare(F kernel, size_t smem) {
                                    (int)smem);
 }
 
+// ------------------------------------------------------ bf16 backward, wgmma
+//
+// One call: prep_kernel, then q_kernel and kv_kernel, which read only what
+// prep_kernel wrote and so do not depend on each other.
+//   prep   one block per (64-row tile, batch·head): bf16 copies of q̂ =
+//          bf16(q·scale), k, v and dO in a tiled layout, each tile of 64
+//          rows [d/8][64][8] (so the 8 rows × 16 bytes of a core matrix of
+//          wgmma are contiguous, for K-major and MN-major reads alike, and a
+//          tile is one bulk copy); per row lse (+inf past T), D = rowsum(dO ∘
+//          O) and the row's hash key; per row q̂·rel_k and dO·rel_v; per key
+//          1 (kept), 0 (masked) or −1 (past T).
+//   q      a warpgroup owns 64 query rows and walks the key tiles, streamed by
+//          bulk copies into two buffers: S = q̂·Kᵀ and dPd = dO·Vᵀ (m64n64k16,
+//          both operands K-major), p, the keep hash, pd and ds in registers,
+//          dQ += ds·K (m64n{d}k16, ds as A from registers, K read MN-major);
+//          the band's ds and pd go to shared memory for dq's rel_k term and
+//          the tile's partial drel_k, drel_v.
+//   kv     a warpgroup owns 64 keys and walks the query tiles: the transposed
+//          products Sᵀ = K·q̂ᵀ and dPdᵀ = V·dOᵀ, then dV += pdᵀ·dO and
+//          dK += dsᵀ·q̂ with pdᵀ, dsᵀ as A from registers: the accumulator
+//          layout of m64n64 is the A fragment layout of k16, so no bf16
+//          intermediate goes through shared memory.
+// Both passes recompute S and dPd (7 T×T products against the bound's 5) so
+// that no sum needs atomics: the gradients are the same bits in every run.
+// ptxas serializes every wgmma of a kernel that calls a function, branches
+// divergently or moves accumulators between two of them: the band, the key
+// mask and the band's stores are selects, the copies are predicated inside
+// their asm, and 1/(1 − rate) and the scale come from the host.
+
+namespace bwd16 {
+
+constexpr int BT = 64;             // rows (or keys) of a tile: one wgmma M
+constexpr int NT = 128;            // one warpgroup a block
+constexpr int BAND = 2 * MAXW;     // a row's band record: q̂·rel_k[w], then dO·rel_v[w]
+constexpr int BROW = 12;           // a row of the band's ds or pd in shared memory
+constexpr uint32_t K_COL = 0xC2B2AE3Du;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+// one bulk copy global → shared by the thread where `pred` holds, its bytes
+// completing on bar (one arrival); predicated inside the asm
+__device__ __forceinline__ void bulk_load_if(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n}\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "r"((int)pred)
+      : "memory");
+}
+// shared-memory matrix descriptor without swizzle: core matrices of 8 rows
+// × 16 contiguous bytes; lbo bytes between core matrices along K, sbo along
+// M or N
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 × 64, f32) += A (64 × 16) · B (16 × 64), bf16, both K-major in shared memory
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 × N, f32) += A (64 × 16, bf16 fragments in registers) · B (16 × N),
+// B MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void load8(float (&x)[8], const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 c = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w; x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
+}
+__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return bf(*p); }
+
+// the dropout factor of (row key, key column): 0 or 1/(1 − rate); 1 without dropout
+template <bool DROP>
+__device__ __forceinline__ float keep_f(uint32_t rk, uint32_t jk, uint32_t thresh, float inv) {
+  if (!DROP) return 1.f;
+  return fmix32(rk ^ jk) >= thresh ? inv : 0.f;
+}
+
+// one [B, H, T, d] operand of the call: its pointer and element strides of
+// b, h and t (d's is 1)
+struct Src {
+  const void* p;
+  long long sb, sh, st;
+};
+struct Srcs {
+  Src q, k, v, dout;
+};
+
+template <typename IN>
+__device__ __forceinline__ const IN* row_of(const Src& s, int b, int h, int t) {
+  return static_cast<const IN*>(s.p) + b * s.sb + h * s.sh + t * s.st;
+}
+
+// prep: one block per (64-row tile, batch·head).  Writes the tile's rows of
+// qh, kh, vh, doh ([B·H][Tp/64][d/8][64][8] bf16, zero past T), its part of
+// stat ([B·H][Tp/64][3][64]: lse or +inf past T, D, the row's hash key as
+// bits), of band ([B·H][Tp][2·MAXW]: q̂·rel_k[w], dO·rel_v[w], zero for
+// w ≥ 2w+1) and, for h = 0, of kinfo ([B][Tp]).
+template <int D, typename IN>
+__global__ void __launch_bounds__(NT)
+prep_kernel(Srcs src, const float* __restrict__ o, const float* __restrict__ lse,
+            const float* __restrict__ mask, const float* __restrict__ rel_k,
+            const float* __restrict__ rel_v, __nv_bfloat16* __restrict__ qh,
+            __nv_bfloat16* __restrict__ kh, __nv_bfloat16* __restrict__ vh,
+            __nv_bfloat16* __restrict__ doh, float* __restrict__ stat, float* __restrict__ band,
+            float* __restrict__ kinfo, int H, int T, int Tp, int n_rel, int window,
+            uint32_t seed, float scale) {
+  constexpr int NC = D / 8, TILE = NC * BT * 8;
+  __shared__ __align__(16) __nv_bfloat16 qs[TILE], ds[TILE];
+  __shared__ float rks[MAXW * D], rvs[MAXW * D];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H, t0 = tile * BT;
+  const int W = 2 * window + 1, nt = Tp / BT;
+  const size_t at0 = ((size_t)bh * nt + tile) * TILE;
+  for (int i = tid; i < BT * NC; i += NT) {
+    const int r = i / NC, c = i - r * NC, t = t0 + r;
+    uint4 pq = make_uint4(0, 0, 0, 0), pk = pq, pv = pq, pd = pq;
+    if (t < T) {
+      float x[8];
+      load8(x, row_of<IN>(src.q, b, h, t) + 8 * c);
+      pq = make_uint4(pack2(x[0] * scale, x[1] * scale), pack2(x[2] * scale, x[3] * scale),
+                      pack2(x[4] * scale, x[5] * scale), pack2(x[6] * scale, x[7] * scale));
+      load8(x, row_of<IN>(src.k, b, h, t) + 8 * c);
+      pk = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
+      load8(x, row_of<IN>(src.v, b, h, t) + 8 * c);
+      pv = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
+      load8(x, row_of<IN>(src.dout, b, h, t) + 8 * c);
+      pd = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
+    }
+    const size_t at = ((size_t)c * BT + r) * 8;
+    *reinterpret_cast<uint4*>(qh + at0 + at) = pq;
+    *reinterpret_cast<uint4*>(kh + at0 + at) = pk;
+    *reinterpret_cast<uint4*>(vh + at0 + at) = pv;
+    *reinterpret_cast<uint4*>(doh + at0 + at) = pd;
+    *reinterpret_cast<uint4*>(qs + at) = pq;
+    *reinterpret_cast<uint4*>(ds + at) = pd;
+  }
+  const size_t rel = (size_t)(n_rel > 1 ? h : 0) * W * D;
+  for (int i = tid; i < MAXW * D; i += NT) {
+    const bool in = i < W * D;
+    rks[i] = in ? rnd<true>(rel_k[rel + i]) : 0.f;
+    rvs[i] = in ? rnd<true>(rel_v[rel + i]) : 0.f;
+  }
+  // D = rowsum(dO ∘ O) in f32, one warp a row
+  float* st = stat + ((size_t)bh * nt + tile) * 3 * BT;
+  const uint32_t bkey = fmix32(seed ^ (uint32_t)(bh + 1) * 0x9E3779B1u);
+  for (int r = warp; r < BT; r += NT / 32) {
+    const int t = t0 + r;
+    float s = 0.f;
+    if (t < T) {
+      const IN* dr = row_of<IN>(src.dout, b, h, t);
+      for (int c = lane; c < D; c += 32) s += load1(dr + c) * o[((size_t)bh * T + t) * D + c];
+    }
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) {
+      st[r] = t < T ? lse[(size_t)bh * T + t] : INFINITY;
+      st[BT + r] = s;
+      st[2 * BT + r] = __uint_as_float(fmix32(bkey ^ (uint32_t)(t + 1) * 0x85EBCA77u));
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < BT * BAND; i += NT) {
+    const int r = i / BAND, x = i - r * BAND, w = x % MAXW;
+    const __nv_bfloat16* a = x < MAXW ? qs : ds;
+    const float* tab = (x < MAXW ? rks : rvs) + w * D;
+    float s = 0.f;
+    for (int c = 0; c < D; ++c) s += bf(a[((c >> 3) * BT + r) * 8 + (c & 7)]) * tab[c];
+    band[((size_t)bh * Tp + t0 + r) * BAND + x] = s;
+  }
+  if (h == 0 && tid < BT) {
+    const int t = t0 + tid;
+    kinfo[(size_t)b * Tp + t] = t < T ? (mask[(size_t)b * T + t] > 0.f ? 1.f : 0.f) : -1.f;
+  }
+}
+
+template <int D>
+struct QSmem {
+  static constexpr int TILE = D / 8 * BT * 8;
+  __nv_bfloat16 q[TILE], dout[TILE];      // this block's rows
+  __nv_bfloat16 kv[2][2][TILE];           // key tiles, two buffers: k, v
+  float ki[2][BT];                        // their kinfo
+  float st[3][BT];                        // this block's rows: lse, D, hash key
+  float band[BT][BAND];
+  float rk[MAXW][D];                      // rel_k in f32, for dq's band term
+  float dsd[BT][BROW], pdd[BT][BROW];     // the band's ds and pd, f32
+  float sink[NT];                         // where the stores off the band go
+  uint64_t bar[3];                        // own rows; key buffers 0 and 1
+};
+
+template <int D>
+struct KVSmem {
+  static constexpr int TILE = D / 8 * BT * 8;
+  __nv_bfloat16 k[TILE], v[TILE];         // this block's keys
+  __nv_bfloat16 q[2][TILE], dout[2][TILE];  // query tiles, two buffers
+  float st[2][3][BT];
+  float band[2][BT][BAND];
+  float ki[BT];
+  uint64_t bar[3];                        // keys; query buffers 0 and 1
+};
+
+static_assert(offsetof(QSmem<96>, ki) % 16 == 0 && offsetof(QSmem<96>, st) % 16 == 0 &&
+              offsetof(QSmem<96>, band) % 16 == 0 && offsetof(QSmem<64>, band) % 16 == 0 &&
+              offsetof(KVSmem<96>, st) % 16 == 0 && offsetof(KVSmem<96>, band) % 16 == 0 &&
+              offsetof(KVSmem<96>, ki) % 16 == 0 && offsetof(KVSmem<64>, ki) % 16 == 0,
+              "bulk copies need 16-byte aligned destinations");
+
+// the A fragments of a k16 step from an m64n64 accumulator's values, two
+// n8 blocks (i = 2kk, 2kk + 1) a step: a[kk][2·(i & 1) + hr] holds rows
+// g + 8·hr, columns 8i + 2tq and 8i + 2tq + 1
+__device__ __forceinline__ void to_frag(uint32_t (&a)[4][4], int i, int hr, float x0, float x1) {
+  a[i >> 1][2 * (i & 1) + hr] = pack2(x0, x1);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(NT, 1)
+q_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
+         const __nv_bfloat16* __restrict__ vh, const __nv_bfloat16* __restrict__ doh,
+         const float* __restrict__ stat, const float* __restrict__ band,
+         const float* __restrict__ kinfo, const float* __restrict__ rel_k,
+         float* __restrict__ dq, float* __restrict__ part_k, float* __restrict__ part_v, int H,
+         int T, int Tp, int n_rel, int window, uint32_t thresh, float inv_keep, float scale) {
+  constexpr int TILE = QSmem<D>::TILE, NA = D / 2;
+  extern __shared__ __align__(128) unsigned char raw[];
+  QSmem<D>& sm = *reinterpret_cast<QSmem<D>*>(raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
+  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H, t0 = tile * BT;
+  const int W = 2 * window + 1, nt = Tp / BT;
+  const bool lead = tid == 0;
+  if (lead) {
+    mbar_init(&sm.bar[0], 4);
+    mbar_init(&sm.bar[1], 3);
+    mbar_init(&sm.bar[2], 3);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const size_t own = ((size_t)bh * nt + tile) * TILE;
+  bulk_load_if(sm.q, qh + own, TILE * 2, &sm.bar[0], lead);
+  bulk_load_if(sm.dout, doh + own, TILE * 2, &sm.bar[0], lead);
+  bulk_load_if(sm.st, stat + ((size_t)bh * nt + tile) * 3 * BT, 3 * BT * 4, &sm.bar[0], lead);
+  bulk_load_if(sm.band, band + ((size_t)bh * Tp + t0) * BAND, BT * BAND * 4, &sm.bar[0], lead);
+  // key tile kt into buffer kt & 1
+  auto load_keys = [&](int kt, bool pred) {
+    const size_t at = ((size_t)bh * nt + kt) * TILE;
+    uint64_t* bar = &sm.bar[1 + (kt & 1)];
+    bulk_load_if(sm.kv[kt & 1][0], kh + at, TILE * 2, bar, pred);
+    bulk_load_if(sm.kv[kt & 1][1], vh + at, TILE * 2, bar, pred);
+    bulk_load_if(sm.ki[kt & 1], kinfo + (size_t)b * Tp + kt * BT, BT * 4, bar, pred);
+  };
+  load_keys(0, lead);
+  const size_t rel = (size_t)(n_rel > 1 ? h : 0) * W * D;
+  for (int i = tid; i < MAXW * D; i += NT) (&sm.rk[0][0])[i] = i < W * D ? rel_k[rel + i] : 0.f;
+  for (int i = tid; i < BT * BROW; i += NT) (&sm.dsd[0][0])[i] = (&sm.pdd[0][0])[i] = 0.f;
+  __syncthreads();
+  mbar_wait(&sm.bar[0], 0);
+
+  int rl[2];
+  float lse_r[2], dd_r[2];
+  uint32_t rk_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    rl[hr] = 16 * warp + g + 8 * hr;
+    lse_r[hr] = sm.st[0][rl[hr]];
+    dd_r[hr] = sm.st[1][rl[hr]];
+    rk_r[hr] = __float_as_uint(sm.st[2][rl[hr]]);
+  }
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+
+  for (int kt = 0; kt < nt; ++kt) {
+    const int buf = kt & 1;
+    load_keys(kt + 1, lead && kt + 1 < nt);
+    mbar_wait(&sm.bar[1 + buf], (kt >> 1) & 1);
+    const __nv_bfloat16* ks = sm.kv[buf][0];
+    const __nv_bfloat16* vs = sm.kv[buf][1];
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_acc(s);
+    fence_acc(dp);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_n64(s, smem_desc(sm.q + 2 * k * BT * 8, BT * 16, 128),
+                smem_desc(ks + 2 * k * BT * 8, BT * 16, 128));
+    wg_commit();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_n64(dp, smem_desc(sm.dout + 2 * k * BT * 8, BT * 16, 128),
+                smem_desc(vs + 2 * k * BT * 8, BT * 16, 128));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+    uint32_t a[4][4];
+    const int k0 = kt * BT;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float o2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * i + 2 * hr + e, jl = 8 * i + 2 * tq + e, j = k0 + jl;
+          const int delta = j - (t0 + rl[hr]);
+          const bool in_band = delta >= -window && delta <= window;
+          const int bi = min(max(delta + window, 0), MAXW - 1);
+          const float kin = sm.ki[buf][jl];
+          float sc = s[x] + (in_band ? sm.band[rl[hr]][bi] : 0.f);
+          sc = kin > 0.f ? sc : NEG_FILL;
+          const float p = kin >= 0.f ? __expf(sc - lse_r[hr]) : 0.f;
+          const float kf = keep_f<DROP>(rk_r[hr], (uint32_t)(j + 1) * K_COL, thresh, inv_keep);
+          const float dpd = dp[x] + (in_band ? sm.band[rl[hr]][MAXW + bi] : 0.f);
+          const float dsv = p * (dpd * kf - dd_r[hr]);
+          *(in_band ? &sm.dsd[rl[hr]][bi] : &sm.sink[tid]) = dsv;
+          *(in_band ? &sm.pdd[rl[hr]][bi] : &sm.sink[tid]) = p * kf;
+          o2[e] = dsv;
+        }
+        to_frag(a, i, hr, o2[0], o2[1]);
+      }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(acc, a[kk], smem_desc(ks + 16 * kk * 8, 128, BT * 16));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(acc);
+    __syncthreads();
+  }
+
+  // dq = (ds·k + band(ds)·rel_k)·scale
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = rl[hr], c = 8 * i + 2 * tq;
+      float v0 = acc[4 * i + 2 * hr], v1 = acc[4 * i + 2 * hr + 1];
+#pragma unroll
+      for (int w = 0; w < MAXW; ++w) {
+        v0 += sm.dsd[r][w] * sm.rk[w][c];
+        v1 += sm.dsd[r][w] * sm.rk[w][c + 1];
+      }
+      if (t0 + r < T)
+        *reinterpret_cast<float2*>(dq + ((size_t)bh * T + t0 + r) * D + c) =
+            make_float2(v0 * scale, v1 * scale);
+    }
+  // this tile's share of drel_k, drel_v: [B·H][Tp/64][2w+1][d], one column a thread
+  if (tid < D) {
+    const int c = tid;
+    float sk[MAXW], sv[MAXW];
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w) sk[w] = sv[w] = 0.f;
+    for (int r = 0; r < BT; ++r) {
+      const int at = ((c >> 3) * BT + r) * 8 + (c & 7);
+      const float qv = bf(sm.q[at]), dv = bf(sm.dout[at]);
+#pragma unroll
+      for (int w = 0; w < MAXW; ++w) {
+        sk[w] += rnd<true>(sm.dsd[r][w]) * qv;
+        sv[w] += rnd<true>(sm.pdd[r][w]) * dv;
+      }
+    }
+    float* pk = part_k + ((size_t)bh * nt + tile) * W * D;
+    float* pv = part_v + ((size_t)bh * nt + tile) * W * D;
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w)
+      if (w < W) {
+        pk[w * D + c] = sk[w];
+        pv[w * D + c] = sv[w];
+      }
+  }
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(NT, 1)
+kv_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
+          const __nv_bfloat16* __restrict__ vh, const __nv_bfloat16* __restrict__ doh,
+          const float* __restrict__ stat, const float* __restrict__ band,
+          const float* __restrict__ kinfo, float* __restrict__ dk, float* __restrict__ dv, int H,
+          int T, int Tp, int window, uint32_t thresh, float inv_keep) {
+  constexpr int TILE = KVSmem<D>::TILE, NA = D / 2;
+  extern __shared__ __align__(128) unsigned char raw[];
+  KVSmem<D>& sm = *reinterpret_cast<KVSmem<D>*>(raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
+  const int tile = blockIdx.x, bh = blockIdx.y, b = bh / H, j0 = tile * BT;
+  const int nt = Tp / BT;
+  const bool lead = tid == 0;
+  if (lead) {
+    mbar_init(&sm.bar[0], 3);
+    mbar_init(&sm.bar[1], 4);
+    mbar_init(&sm.bar[2], 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const size_t own = ((size_t)bh * nt + tile) * TILE;
+  bulk_load_if(sm.k, kh + own, TILE * 2, &sm.bar[0], lead);
+  bulk_load_if(sm.v, vh + own, TILE * 2, &sm.bar[0], lead);
+  bulk_load_if(sm.ki, kinfo + (size_t)b * Tp + j0, BT * 4, &sm.bar[0], lead);
+  // query tile qt into buffer qt & 1
+  auto load_queries = [&](int qt, bool pred) {
+    const size_t at = ((size_t)bh * nt + qt) * TILE;
+    const int bf_ = qt & 1;
+    uint64_t* bar = &sm.bar[1 + bf_];
+    bulk_load_if(sm.q[bf_], qh + at, TILE * 2, bar, pred);
+    bulk_load_if(sm.dout[bf_], doh + at, TILE * 2, bar, pred);
+    bulk_load_if(sm.st[bf_], stat + ((size_t)bh * nt + qt) * 3 * BT, 3 * BT * 4, bar, pred);
+    bulk_load_if(sm.band[bf_], band + ((size_t)bh * Tp + qt * BT) * BAND, BT * BAND * 4, bar,
+                 pred);
+  };
+  load_queries(0, lead);
+  mbar_wait(&sm.bar[0], 0);
+
+  int jl[2];
+  float kin[2];
+  uint32_t jk[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    jl[hr] = 16 * warp + g + 8 * hr;
+    kin[hr] = sm.ki[jl[hr]];
+    jk[hr] = (uint32_t)(j0 + jl[hr] + 1) * K_COL;
+  }
+  float gk[NA], gv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) gk[i] = gv[i] = 0.f;
+  fence_acc(gk);
+  fence_acc(gv);
+
+  for (int qt = 0; qt < nt; ++qt) {
+    const int buf = qt & 1;
+    load_queries(qt + 1, lead && qt + 1 < nt);
+    mbar_wait(&sm.bar[1 + buf], (qt >> 1) & 1);
+    const __nv_bfloat16* qs = sm.q[buf];
+    const __nv_bfloat16* dos = sm.dout[buf];
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_acc(s);
+    fence_acc(dp);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_n64(s, smem_desc(sm.k + 2 * k * BT * 8, BT * 16, 128),
+                smem_desc(qs + 2 * k * BT * 8, BT * 16, 128));
+    wg_commit();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_n64(dp, smem_desc(sm.v + 2 * k * BT * 8, BT * 16, 128),
+                smem_desc(dos + 2 * k * BT * 8, BT * 16, 128));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+
+    uint32_t apd[4][4], ads[4][4];
+    const int t0 = qt * BT;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float pd2[2], ds2[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * i + 2 * hr + e, tl = 8 * i + 2 * tq + e;
+          const int delta = j0 + jl[hr] - (t0 + tl);
+          const bool in_band = delta >= -window && delta <= window;
+          const int bi = min(max(delta + window, 0), MAXW - 1);
+          float sc = s[x] + (in_band ? sm.band[buf][tl][bi] : 0.f);
+          sc = kin[hr] > 0.f ? sc : NEG_FILL;
+          const float p = kin[hr] >= 0.f ? __expf(sc - sm.st[buf][0][tl]) : 0.f;
+          const float kf =
+              keep_f<DROP>(__float_as_uint(sm.st[buf][2][tl]), jk[hr], thresh, inv_keep);
+          const float dpd = dp[x] + (in_band ? sm.band[buf][tl][MAXW + bi] : 0.f);
+          pd2[e] = p * kf;
+          ds2[e] = p * (dpd * kf - sm.st[buf][1][tl]);
+        }
+        to_frag(apd, i, hr, pd2[0], pd2[1]);
+        to_frag(ads, i, hr, ds2[0], ds2[1]);
+      }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(gv, apd[kk], smem_desc(dos + 16 * kk * 8, 128, BT * 16));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(gk, ads[kk], smem_desc(qs + 16 * kk * 8, 128, BT * 16));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(gk);
+    fence_acc(gv);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int j = j0 + jl[hr], c = 8 * i + 2 * tq;
+      if (j < T) {
+        const size_t at = ((size_t)bh * T + j) * D + c;
+        const int x = 4 * i + 2 * hr;
+        *reinterpret_cast<float2*>(dk + at) = make_float2(gk[x], gk[x + 1]);
+        *reinterpret_cast<float2*>(dv + at) = make_float2(gv[x], gv[x + 1]);
+      }
+    }
+}
+
+template <int D, typename IN>
+int backward(const Srcs& src, const float* o, const float* lse, const float* mask,
+             const float* rel_k, const float* rel_v, __nv_bfloat16* qh, __nv_bfloat16* kh,
+             __nv_bfloat16* vh, __nv_bfloat16* doh, float* stat, float* band, float* kinfo,
+             float* dq, float* dk, float* dv, float* part_k, float* part_v, int B, int H, int T,
+             int n_rel, int window, uint32_t seed, uint32_t thresh, float inv, float scale,
+             cudaStream_t s) {
+  const int Tp = (T + BT - 1) / BT * BT;
+  const dim3 grid(Tp / BT, B * H);
+  auto qk = thresh ? q_kernel<D, true> : q_kernel<D, false>;
+  auto kvk = thresh ? kv_kernel<D, true> : kv_kernel<D, false>;
+  int err = prepare(qk, sizeof(QSmem<D>));
+  if (!err) err = prepare(kvk, sizeof(KVSmem<D>));
+  if (err) return err;
+  prep_kernel<D, IN><<<grid, NT, 0, s>>>(src, o, lse, mask, rel_k, rel_v, qh, kh, vh, doh, stat,
+                                         band, kinfo, H, T, Tp, n_rel, window, seed, scale);
+  qk<<<grid, NT, sizeof(QSmem<D>), s>>>(qh, kh, vh, doh, stat, band, kinfo, rel_k, dq, part_k,
+                                        part_v, H, T, Tp, n_rel, window, thresh, inv, scale);
+  kvk<<<grid, NT, sizeof(KVSmem<D>), s>>>(qh, kh, vh, doh, stat, band, kinfo, dk, dv, H, T, Tp,
+                                          window, thresh, inv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd16
+
 }  // namespace
 
 // q, k, v, out, dq, dk, dv, dout: [B, H, T, d]; rel_k, rel_v: [n_rel, 2w+1, d];
 // mask: [B, T]; lse, rowd: [B, H, T]; qrel, dorel: [B, H, T, 2w+1]; part_k,
 // part_v: [B·H, ceil(T/32), 2w+1, d].  All f32, contiguous.  d ∈ {64, 96},
 // w ≤ 4.  thresh = rate·2³² (0: no dropout), inv_keep = 1/(1 − rate).
-// Every entry returns a cudaError_t as int.
+// rel_attn_train_bwd_q and _bwd_kv are the f32 backward; the bf16 backward
+// is rel_attn_train_bwd_bf16.  Every entry returns a cudaError_t as int.
 extern "C" int rel_attn_train_tile() { return BQ; }
 
 extern "C" int rel_attn_train_fwd(const float* q, const float* k, const float* v,
@@ -525,15 +1157,14 @@ extern "C" int rel_attn_train_bwd_q(const float* q, const float* k, const float*
                                     const float* o, const float* lse, const float* dout,
                                     float* dq, float* rowd, float* qrel, float* dorel,
                                     float* part_k, float* part_v, int B, int H, int T, int d,
-                                    int n_rel, int window, int bf16, uint32_t seed,
-                                    uint32_t thresh, float rate, void* stream) {
+                                    int n_rel, int window, uint32_t seed, uint32_t thresh,
+                                    float rate, void* stream) {
   if (window > 4 || (d != 64 && d != 96)) return (int)cudaErrorInvalidValue;
   dim3 grid((T + BQ - 1) / BQ, B * H);
   const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = d == 96 ? sizeof(BwdQSmem<96>) : sizeof(BwdQSmem<64>);
-  auto kernel = d == 96 ? (bf16 ? bwd_q_kernel<96, true> : bwd_q_kernel<96, false>)
-                        : (bf16 ? bwd_q_kernel<64, true> : bwd_q_kernel<64, false>);
+  auto kernel = d == 96 ? bwd_q_kernel<96, false> : bwd_q_kernel<64, false>;
   const int err = prepare(kernel, smem);
   if (err) return err;
   kernel<<<grid, NWARP * 32, smem, s>>>(q, k, v, rel_k, rel_v, mask, o, lse, dout, dq, rowd, qrel,
@@ -546,18 +1177,52 @@ extern "C" int rel_attn_train_bwd_kv(const float* q, const float* k, const float
                                      const float* mask, const float* lse, const float* dout,
                                      const float* rowd, const float* qrel, const float* dorel,
                                      float* dk, float* dv, int B, int H, int T, int d, int n_rel,
-                                     int window, int bf16, uint32_t seed, uint32_t thresh,
-                                     float rate, void* stream) {
+                                     int window, uint32_t seed, uint32_t thresh, float rate,
+                                     void* stream) {
   if (window > 4 || (d != 64 && d != 96)) return (int)cudaErrorInvalidValue;
   dim3 grid((T + BQ - 1) / BQ, B * H);
   const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = d == 96 ? sizeof(BwdKVSmem<96>) : sizeof(BwdKVSmem<64>);
-  auto kernel = d == 96 ? (bf16 ? bwd_kv_kernel<96, true> : bwd_kv_kernel<96, false>)
-                        : (bf16 ? bwd_kv_kernel<64, true> : bwd_kv_kernel<64, false>);
+  auto kernel = d == 96 ? bwd_kv_kernel<96, false> : bwd_kv_kernel<64, false>;
   const int err = prepare(kernel, smem);
   if (err) return err;
   kernel<<<grid, NWARP * 32, smem, s>>>(q, k, v, mask, lse, dout, rowd, qrel, dorel, dk, dv, H,
                                         T, n_rel, window, seed, thresh, inv, scale);
   return (int)cudaGetLastError();
+}
+
+// The bf16 backward on wgmma: prep, q and kv (namespace bwd16) in one call.
+//   q, k, v, dout: [B, H, T, d], f32 or (in_bf16) bf16, any strides whose
+//     rows start 16-byte aligned: strides[4·i .. 4·i + 2] are operand i's
+//     element strides of b, h and t (d's is 1; host memory).
+//   o [B, H, T, d], lse [B, H, T], mask [B, T], rel_k, rel_v [n_rel, 2w+1, d]: f32.
+//   qh, kh, vh, doh: bf16 [B·H, Tp·d], stat [B·H, Tp/64, 3, 64], band [B·H, Tp, 18],
+//     kinfo [B, Tp]: scratch, every element written, Tp = ceil(T/64)·64.
+//   dq, dk, dv [B, H, T, d]; part_k, part_v [B·H, Tp/64, 2w+1, d]: f32 out.
+extern "C" int rel_attn_train_bwd_tile() { return bwd16::BT; }
+
+extern "C" int rel_attn_train_bwd_bf16(const void* q, const void* k, const void* v,
+                                       const void* dout, const long long* strides,
+                                       const float* o, const float* lse, const float* mask,
+                                       const float* rel_k, const float* rel_v, void* qh, void* kh,
+                                       void* vh, void* doh, float* stat, float* band,
+                                       float* kinfo, float* dq, float* dk, float* dv,
+                                       float* part_k, float* part_v, int B, int H, int T, int d,
+                                       int n_rel, int window, int in_bf16, uint32_t seed,
+                                       uint32_t thresh, float rate, void* stream) {
+  using bf = __nv_bfloat16;
+  if (window > 4 || (d != 64 && d != 96)) return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, dout};
+  bwd16::Src s4[4];
+  for (int i = 0; i < 4; ++i)
+    s4[i] = bwd16::Src{ptrs[i], strides[4 * i], strides[4 * i + 1], strides[4 * i + 2]};
+  const bwd16::Srcs src{s4[0], s4[1], s4[2], s4[3]};
+  const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
+  auto run = d == 96 ? (in_bf16 ? bwd16::backward<96, bf> : bwd16::backward<96, float>)
+                     : (in_bf16 ? bwd16::backward<64, bf> : bwd16::backward<64, float>);
+  return run(src, o, lse, mask, rel_k, rel_v, static_cast<bf*>(qh), static_cast<bf*>(kh),
+             static_cast<bf*>(vh), static_cast<bf*>(doh), stat, band, kinfo, dq, dk, dv, part_k,
+             part_v, B, H, T, n_rel, window, seed, thresh, inv, scale,
+             static_cast<cudaStream_t>(stream));
 }

@@ -178,6 +178,178 @@ def _check(q, k, v, rel_k, rel_v, key_mask, window):
                          f"got d={d}, window={window}")
 
 
+BWD_TILE = 64      # rows, or keys, of a bf16 backward tile (bwd16::BT)
+BAND_ROW = 18      # floats of a row's band record: q̂·rel_k[w], then dO·rel_v[w] (bwd16::BAND)
+_MAXW = 9
+
+
+def bwd_rows(T: int):
+    """(Tp, tiles): T rounded up to whole 64-row tiles of the bf16 backward."""
+    Tp = -(-T // BWD_TILE) * BWD_TILE
+    return Tp, Tp // BWD_TILE
+
+
+def bwd_grid(B: int, H: int, T: int) -> dict:
+    """The bf16 backward's launches: (grid, threads) of prep, q and kv."""
+    grid = ((bwd_rows(T)[1], B * H), 128)
+    return {"prep": grid, "q": grid, "kv": grid}
+
+
+def to_bwd_tiles(x: torch.Tensor, Tp: int) -> torch.Tensor:
+    """x [BH, T, d] → its bf16 copy as the kernels hold it: [BH, Tp/64, d/8,
+    64, 8], 64-row tiles of 8-column chunks of 16-byte rows, zero past T."""
+    BH, T, d = x.shape
+    out = torch.zeros(BH, Tp, d, dtype=torch.bfloat16, device=x.device)
+    out[:, :T] = x
+    return out.reshape(BH, Tp // BWD_TILE, BWD_TILE, d // 8, 8).permute(0, 1, 3, 2, 4).contiguous()
+
+
+def from_bwd_tiles(x: torch.Tensor) -> torch.Tensor:
+    """``to_bwd_tiles``' layout → [BH, Tp, d] in f32."""
+    BH, nt, nc, bt, _ = x.shape
+    return x.permute(0, 1, 3, 2, 4).reshape(BH, nt * bt, nc * 8).float()
+
+
+def _bits_to_f32(h: torch.Tensor) -> torch.Tensor:
+    return (((h + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32).view(torch.float32)
+
+
+def _f32_to_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+
+
+def bwd_prep(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed: int, window: int) -> dict:
+    """What ``prep_kernel`` writes, in plain PyTorch: the tiled bf16 copies
+    of q̂ = bf16(q·scale), k, v, dO; ``stat`` [BH, Tp/64, 3, 64] (lse, +inf
+    past T; D = rowsum(dO ∘ O); the row's hash key as bits); ``band``
+    [BH, Tp, 18] (q̂·rel_k[w], dO·rel_v[w], bf16 operands); ``kinfo`` [B, Tp]
+    (1 kept, 0 masked, −1 past T)."""
+    B, H, T, d = q.shape
+    BH, W = B * H, 2 * window + 1
+    Tp, nt = bwd_rows(T)
+    flat = lambda t: t.float().reshape(BH, T, d)  # noqa: E731
+    qh = to_bwd_tiles(flat(q) * (1.0 / math.sqrt(d)), Tp)
+    tiles = {"qh": qh, "kh": to_bwd_tiles(flat(k), Tp), "vh": to_bwd_tiles(flat(v), Tp),
+             "doh": to_bwd_tiles(flat(dout), Tp)}
+    stat = torch.zeros(BH, Tp, 3)
+    stat[:, :, 0] = math.inf
+    stat[:, :T, 0] = lse.float().reshape(BH, T)
+    stat[:, :T, 1] = (flat(dout) * flat(out)).sum(-1)
+    a = _fmix32((seed & _MASK32) ^ _mul32(torch.arange(BH, dtype=torch.int64) + 1, _K_BH))
+    rows = _fmix32(a[:, None] ^ _mul32(torch.arange(Tp, dtype=torch.int64) + 1, _K_ROW)[None])
+    stat[:, :, 2] = _bits_to_f32(rows)
+    stat = stat.reshape(BH, nt, BWD_TILE, 3).transpose(2, 3).contiguous()
+    n_rel = rel_k.shape[0]
+    tab = lambda t: _r(t.float(), True).expand(H, W, d).repeat(B, 1, 1) if n_rel == 1 \
+        else _r(t.float(), True).repeat(B, 1, 1)  # noqa: E731
+    band = torch.zeros(BH, Tp, BAND_ROW)
+    band[:, :, :W] = torch.einsum("btd,bwd->btw", from_bwd_tiles(qh), tab(rel_k))
+    band[:, :, _MAXW:_MAXW + W] = torch.einsum("btd,bwd->btw", from_bwd_tiles(tiles["doh"]),
+                                                tab(rel_v))
+    kinfo = torch.full((B, Tp), -1.0)
+    kinfo[:, :T] = (key_mask.float() > 0).float()
+    return dict(tiles, stat=stat, band=band, kinfo=kinfo)
+
+
+def _band_terms(band, t, j, window, transposed: bool):
+    """The band's q̂·rel_k and dO·rel_v terms of a tile pair, zero off the
+    band, with its positions: band [BH, 64, 18] of the tile's query rows, t
+    and j [rows, cols] the elements' query row and key (rows are queries,
+    or keys when ``transposed``).  → (qb, db, w = δ + window, in-band)."""
+    delta = j - t
+    in_band = delta.abs() <= window
+    bi = (delta + window).clamp(0, _MAXW - 1)
+    idx = (bi.t() if transposed else bi).expand(band.shape[0], -1, -1)
+    terms = []
+    for off in (0, _MAXW):
+        x = torch.gather(band[..., off:off + _MAXW], 2, idx)
+        terms.append(torch.where(in_band, x.transpose(1, 2) if transposed else x, 0.0))
+    return terms[0], terms[1], bi, in_band
+
+
+def _tile_probs(s, dp, qb, db, lse, dd, rk, kinfo, j, thresh, inv):
+    """The kernels' per-element step on a tile pair: → (pd, ds)."""
+    sc = torch.where(kinfo > 0, s + qb, torch.full_like(s, NEG_FILL))
+    p = torch.where(kinfo >= 0, torch.exp(sc - lse), torch.zeros_like(s))
+    kf = torch.ones_like(s)
+    if thresh:
+        h = _fmix32(rk ^ _mul32(j + 1, _K_COL))
+        kf = torch.where(h >= thresh, torch.full_like(s, inv), torch.zeros_like(s))
+    return p * kf, p * ((dp + db) * kf - dd)
+
+
+def relative_self_attention_train_tiled_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse,
+                                            seed: int, rate: float, window: int = 4):
+    """The bf16 backward's data flow in plain PyTorch (CPU): ``bwd_prep``'s
+    tiled copies, the q pass over 64-row tiles with its per-tile band
+    partials, the kv pass over 64-key tiles with the transposed products,
+    and the partials summed in a fixed order.  → (dq, dk, dv, drel_k, drel_v)."""
+    B, H, T, d = q.shape
+    BH, W, n_rel = B * H, 2 * window + 1, rel_k.shape[0]
+    Tp, nt = bwd_rows(T)
+    bt = BWD_TILE
+    pre = bwd_prep(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, window)
+    qh, kh, vh, doh = (from_bwd_tiles(pre[n]) for n in ("qh", "kh", "vh", "doh"))
+    stat, band = pre["stat"], pre["band"]
+    kinfo = pre["kinfo"].repeat_interleave(H, 0)            # [BH, Tp]
+    thresh, inv = keep_threshold(rate), 1.0 / (1.0 - rate)
+    rb = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    ar = torch.arange(bt)
+    rk_f32 = rel_k.float().expand(H, W, d).repeat(B, 1, 1) if n_rel == 1 \
+        else rel_k.float().repeat(B, 1, 1)                  # [BH, W, d]
+    dq = torch.zeros(BH, Tp, d)
+    part_k = torch.zeros(BH, nt, W, d)
+    part_v = torch.zeros_like(part_k)
+    for qt in range(nt):                                    # q pass: 64 query rows a block
+        rows = slice(qt * bt, qt * bt + bt)
+        lse_t, dd_t = stat[:, qt, 0, :, None], stat[:, qt, 1, :, None]
+        rk_t = _f32_to_bits(stat[:, qt, 2])[:, :, None]
+        acc = torch.zeros(BH, bt, d)
+        dsd = torch.zeros(BH, bt, _MAXW)
+        pdd = torch.zeros_like(dsd)
+        for kt in range(nt):
+            cols = slice(kt * bt, kt * bt + bt)
+            s = qh[:, rows] @ kh[:, cols].transpose(1, 2)
+            dp = doh[:, rows] @ vh[:, cols].transpose(1, 2)
+            t, j = (qt * bt + ar)[:, None], (kt * bt + ar)[None]
+            qb, db, bi, in_band = _band_terms(band[:, rows], t, j, window, False)
+            pd, ds = _tile_probs(s, dp, qb, db, lse_t, dd_t, rk_t, kinfo[:, None, cols], j,
+                                 thresh, inv)
+            for w in range(W):
+                at = (in_band & (bi == w)).float()
+                dsd[..., w] += (ds * at).sum(-1)
+                pdd[..., w] += (pd * at).sum(-1)
+            acc += rb(ds) @ kh[:, cols]
+        dq[:, rows] = (acc + torch.einsum("brw,bwd->brd", dsd[..., :W], rk_f32)) / math.sqrt(d)
+        part_k[:, qt] = torch.einsum("brw,brd->bwd", rb(dsd[..., :W]), qh[:, rows])
+        part_v[:, qt] = torch.einsum("brw,brd->bwd", rb(pdd[..., :W]), doh[:, rows])
+    dk = torch.zeros(BH, Tp, d)
+    dv = torch.zeros(BH, Tp, d)
+    for kt in range(nt):                                    # kv pass: 64 keys a block
+        keys = slice(kt * bt, kt * bt + bt)
+        gk = torch.zeros(BH, bt, d)
+        gv = torch.zeros(BH, bt, d)
+        for qt in range(nt):
+            rows = slice(qt * bt, qt * bt + bt)
+            st = qh[:, rows].transpose(1, 2)                # Sᵀ = K·q̂ᵀ: keys × queries
+            s = kh[:, keys] @ st
+            dp = vh[:, keys] @ doh[:, rows].transpose(1, 2)
+            t, j = (qt * bt + ar)[None], (kt * bt + ar)[:, None]
+            qb, db, _, _ = _band_terms(band[:, rows], t, j, window, True)
+            pd, ds = _tile_probs(s, dp, qb, db, stat[:, qt, 0, None, :],
+                                 stat[:, qt, 1, None, :], _f32_to_bits(stat[:, qt, 2])[:, None, :],
+                                 kinfo[:, keys, None], j, thresh, inv)
+            gv += rb(pd) @ doh[:, rows]
+            gk += rb(ds) @ qh[:, rows]
+        dk[:, keys] = gk
+        dv[:, keys] = gv
+    shape = lambda x: x[:, :T].reshape(B, H, T, d)  # noqa: E731
+    dims = (0, 1) if n_rel == 1 else (0,)
+    drel_k = part_k.reshape(B, H, nt, W, d).sum(dim=2).sum(dim=dims).reshape(n_rel, W, d)
+    drel_v = part_v.reshape(B, H, nt, W, d).sum(dim=2).sum(dim=dims).reshape(n_rel, W, d)
+    return shape(dq), shape(dk), shape(dv), drel_k, drel_v
+
+
 def _fn(lib, name, n_ptr, n_int):
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
@@ -188,6 +360,18 @@ def _fn(lib, name, n_ptr, n_int):
 
 def _f32(t):
     return t.detach().float().contiguous()
+
+
+def _operand(t, bf16_in: bool):
+    """q, k, v or dO as the bf16 backward reads it: bf16 (``bf16_in``) or
+    f32, any strides whose rows start 16-byte aligned along a unit-stride d."""
+    t = t.detach().to(torch.bfloat16 if bf16_in else torch.float32)
+    size = t.element_size()
+    if t.stride(-1) != 1 or any(s * size % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        t = t.contiguous()
+        if t.data_ptr() % 16:
+            t = t.clone()
+    return t
 
 
 def _launch_fwd(q, k, v, rel_k, rel_v, key_mask, seed, rate, window, bf16):
@@ -205,8 +389,15 @@ def _launch_fwd(q, k, v, rel_k, rel_v, key_mask, seed, rate, window, bf16):
     return out, lse
 
 
-def _launch_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window, bf16):
-    global bwd_launches
+def _sum_partials(part_k, part_v, B, H, n_rel):
+    """The per-tile drel partials [B·H, tiles, W, d], summed in a fixed order."""
+    W, d = part_k.shape[-2:]
+    dims = (0, 1) if n_rel == 1 else (0,)
+    return tuple(p.reshape(B, H, -1, W, d).sum(dim=2).sum(dim=dims).reshape(n_rel, W, d)
+                 for p in (part_k, part_v))
+
+
+def _launch_bwd_f32(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window):
     B, H, T, d = q.shape
     n_rel, W = rel_k.shape[0], 2 * window + 1
     args = [_f32(t) for t in (q, k, v, rel_k, rel_v, key_mask, out, lse, dout)]
@@ -219,24 +410,57 @@ def _launch_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, win
     part_k = torch.empty(B * H, n_tiles, W, d, device=q.device)
     part_v = torch.empty_like(part_k)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (B, H, T, d, n_rel, window, int(bf16), seed & 0xFFFFFFFF,
-              keep_threshold(rate), rate, stream)
-    fn_q = _fn(lib, "rel_attn_train_bwd_q", 15, 7)
+    common = (B, H, T, d, n_rel, window, seed & 0xFFFFFFFF, keep_threshold(rate), rate, stream)
+    fn_q = _fn(lib, "rel_attn_train_bwd_q", 15, 6)
     status = fn_q(*(t.data_ptr() for t in args), dq.data_ptr(), rowd.data_ptr(),
                   qrel.data_ptr(), dorel.data_ptr(), part_k.data_ptr(), part_v.data_ptr(),
                   *common)
     _build.check(status, "rel_attention_train backward (dq)")
-    fn_kv = _fn(lib, "rel_attn_train_bwd_kv", 11, 7)
+    fn_kv = _fn(lib, "rel_attn_train_bwd_kv", 11, 6)
     status = fn_kv(*(args[i].data_ptr() for i in (0, 1, 2, 5, 7, 8)), rowd.data_ptr(),
                    qrel.data_ptr(), dorel.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common)
     _build.check(status, "rel_attention_train backward (dk, dv)")
+    return (dq, dk, dv) + _sum_partials(part_k, part_v, B, H, n_rel)
+
+
+def _launch_bwd_bf16(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window):
+    B, H, T, d = q.shape
+    n_rel, W = rel_k.shape[0], 2 * window + 1
+    lib = _build.load("rel_attention_train")
+    if lib.rel_attn_train_bwd_tile() != BWD_TILE:
+        raise RuntimeError("csrc/rel_attention_train.cu's bf16 backward tile is not BWD_TILE")
+    Tp, nt = bwd_rows(T)
+    bf16_in = all(t.dtype == torch.bfloat16 for t in (q, k, v, dout))
+    ops = [_operand(t, bf16_in) for t in (q, k, v, dout)]
+    strides = (ctypes.c_longlong * 16)(*(x for t in ops for x in (*t.stride()[:3], 0)))
+    rest = [_f32(t) for t in (out, lse, key_mask, rel_k, rel_v)]
+    dev = q.device
+    copies = torch.empty(4, B * H, Tp * d, dtype=torch.bfloat16, device=dev)
+    stat = torch.empty(B * H, nt, 3, BWD_TILE, device=dev)
+    band = torch.empty(B * H, Tp, BAND_ROW, device=dev)
+    kinfo = torch.empty(B, Tp, device=dev)
+    dq, dk, dv = (torch.empty(B, H, T, d, device=dev) for _ in range(3))
+    part_k = torch.empty(B * H, nt, W, d, device=dev)
+    part_v = torch.empty_like(part_k)
+    fn = _fn(lib, "rel_attn_train_bwd_bf16", 22, 7)
+    status = fn(*(t.data_ptr() for t in ops), ctypes.addressof(strides),
+                *(t.data_ptr() for t in rest), *(c.data_ptr() for c in copies),
+                stat.data_ptr(), band.data_ptr(), kinfo.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), part_k.data_ptr(), part_v.data_ptr(),
+                B, H, T, d, n_rel, window, int(bf16_in), seed & 0xFFFFFFFF,
+                keep_threshold(rate), rate, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "rel_attention_train bf16 backward")
+    return (dq, dk, dv) + _sum_partials(part_k, part_v, B, H, n_rel)
+
+
+def _launch_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window, bf16):
+    """The backward on the card: with ``bf16`` the wgmma kernels, else the
+    f32 CUDA-core kernels.  → (dq, dk, dv, drel_k, drel_v), f32."""
+    global bwd_launches
+    launch = _launch_bwd_bf16 if bf16 else _launch_bwd_f32
+    grads = launch(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window)
     bwd_launches += 1
-    part_k = part_k.reshape(B, H, n_tiles, W, d).sum(dim=2)
-    part_v = part_v.reshape(B, H, n_tiles, W, d).sum(dim=2)
-    dims = (0, 1) if n_rel == 1 else (0,)
-    drel_k = part_k.sum(dim=dims).reshape(n_rel, W, d)
-    drel_v = part_v.sum(dim=dims).reshape(n_rel, W, d)
-    return dq, dk, dv, drel_k, drel_v
+    return grads
 
 
 class _RelAttentionTrain(torch.autograd.Function):
