@@ -566,13 +566,15 @@ def e_bwd_breakdown(torch, dev, reps: int = 5) -> dict:
 
 
 def _by_op(torch, call, reps: int) -> dict:
-    """``call``'s time per call (events around back-to-back calls) and, from
-    torch.profiler, the device time per call of each op it launches.
-    → {"ms", "device_ms", "ops": {name: [ms, launches]}, "grads": call()}."""
+    """``call``'s time per call (events around back-to-back calls), its host
+    dispatch time per call (``device_ms``) and, from torch.profiler, the
+    device time per call of each op it launches.
+    → {"ms", "host_ms", "device_ms", "ops": {name: [ms, launches]}, "grads": call()}."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     ms = time_ms(call, reps)
+    host_ms = device_ms(call, reps)[1]
     call()
     torch.cuda.synchronize()
     with trace(activities=[ProfilerActivity.CUDA]) as prof:
@@ -585,7 +587,7 @@ def _by_op(torch, call, reps: int) -> dict:
             name = _op_name(e.key)
             t, n = ops.get(name, (0.0, 0))
             ops[name] = (t + e.self_device_time_total / 1e3 / reps, n + e.count // reps)
-    return {"ms": ms, "device_ms": sum(t for t, _ in ops.values()),
+    return {"ms": ms, "host_ms": host_ms, "device_ms": sum(t for t, _ in ops.values()),
             "ops": {k: list(v) for k, v in sorted(ops.items(), key=lambda kv: -kv[1][0])},
             "grads": call()}
 
@@ -630,7 +632,8 @@ def f_bwd_breakdown(torch, dev, T: int, reps: int = 5) -> dict:
 def print_f_bwd(T: int, r: dict) -> None:
     B, H, d = F_BWD_SHAPE
     print(f"  rel_attention_train_bwd B={B} H={H} T={T} d={d} rate {F_RATE} bf16: "
-          f"{r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms of device time by the profiler:")
+          f"{r['ms']:.4f} ms a call ({r['host_ms']:.4f} ms of host dispatch), "
+          f"{r['device_ms']:.4f} ms of device time by the profiler:")
     for name, (ms, n) in r["ops"].items():
         print(f"    {ms:9.4f} ms  x{n:<4d} {name}")
 

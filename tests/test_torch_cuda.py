@@ -14,7 +14,7 @@ launches.  Kernel D in f32 is held to 1e-4 of its output's peak (sums of
 up to 15 · 128 terms).  bf16 output is held to 2^-7 of its peak, one bf16
 ulp in the peak's binade.  The training kernels E and F, forward and every
 gradient, are held to 1e-4 of each tensor's peak in f32 and 2^-7 of it
-with bf16 operands (E's bf16 backward on wgmma included).
+with bf16 operands (E's and F's bf16 backward on wgmma included).
 """
 
 import numpy as np
@@ -411,8 +411,12 @@ def test_wn_stack_train_bf16_refuses_k7(device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,n_rel,rate,bf16", [(131, 1, 0.1, False), (64, 2, 0.0, False),
-                                               (300, 1, 0.1, True)])
+                                               (300, 1, 0.1, True), (128, 1, 0.1, True),
+                                               (131, 2, 0.1, True), (640, 1, 0.1, True),
+                                               (1024, 1, 0.1, True), (1024, 2, 0.0, True)])
 def test_rel_attention_train(device, T, n_rel, rate, bf16):
+    """Forward and every gradient against the plain version; padded keys
+    get zero dk and dv; the bf16 backward (wgmma) gives the same bits twice."""
     r = np.random.RandomState(5)
     B, H, d = 2, 2, 96
     mask = (np.arange(T)[None, :] < np.array([T, T - 37])[:, None]).astype(np.float32)
@@ -430,6 +434,53 @@ def test_rel_attention_train(device, T, n_rel, rate, bf16):
     _held([out] + [leaves[i].grad for i in range(5)], (ref,) + refs, bf16)
     n = T - 37   # padded key columns get no gradient
     assert leaves[1].grad[1, :, n:].abs().max() == 0 and leaves[2].grad[1, :, n:].abs().max() == 0
+    if bf16:
+        out_k, lse_k = rel_attention_train._launch_fwd(*args, 11, rate, 4, True)
+        runs = [rel_attention_train._launch_bwd(dout, *args, out_k, lse_k, 11, rate, 4, True)
+                for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [77, 200])
+def test_rel_attention_train_bf16_operands_in_the_model_layout(device, T):
+    """bf16 q, k, v and dO as the attention layer hands them over, [B, T, H,
+    d] projections seen as [B, H, T, d]: the bf16 backward reads them through
+    their strides and matches the plain version on f32 copies."""
+    r = np.random.RandomState(T)
+    B, H, d = 3, 2, 96
+    mask = (np.arange(T)[None, :] < np.array([T, T - 9, T - 30])[:, None]).astype(np.float32)
+    q, k, v, dout = (_cuda(device, r.randn(B, T, H, d), dtype=torch.bfloat16)[0].transpose(1, 2)
+                     for _ in range(4))
+    rel_k, rel_v, mask_t = _cuda(device, r.randn(1, 9, d) * d ** -0.5,
+                                 r.randn(1, 9, d) * d ** -0.5, mask)
+    out, lse = rel_attention_train._launch_fwd(q, k, v, rel_k, rel_v, mask_t, 3, 0.1, 4, True)
+    grads = rel_attention_train._launch_bwd(dout, q, k, v, rel_k, rel_v, mask_t, out, lse, 3,
+                                            0.1, 4, True)
+    f = [t.float() for t in (q, k, v, rel_k, rel_v, mask_t)]
+    refs = rel_attention_train.relative_self_attention_train_plain_bwd(dout.float(), *f, lse, 3,
+                                                                       0.1, 4, True)
+    _held(grads, refs, True)
+
+
+@pytest.mark.cuda
+def test_rel_attention_train_backward_kernels_by_precision(device):
+    """bf16 operands take the wgmma kernels (prep, then both passes in one
+    launch), f32 the CUDA-core bwd_q and bwd_kv kernels."""
+    r = np.random.RandomState(6)
+    B, H, T, d = 2, 2, 150, 96
+    args = _cuda(device, r.randn(B, H, T, d), r.randn(B, H, T, d), r.randn(B, H, T, d),
+                 r.randn(1, 9, d) * d ** -0.5, r.randn(1, 9, d) * d ** -0.5, np.ones((B, T)))
+    dout = _cuda(device, r.randn(B, H, T, d))[0]
+    names = {}
+    for bf16 in (False, True):
+        out, lse = rel_attention_train._launch_fwd(*args, 3, 0.1, 4, bf16)
+        names[bf16] = _device_kernels(lambda: rel_attention_train._launch_bwd(
+            dout, *args, out, lse, 3, 0.1, 4, bf16))
+    for kernel in ("bwd_q_kernel<96, false>", "bwd_kv_kernel<96, false>"):
+        assert kernel in names[False] and kernel not in names[True]
+    for kernel in ("bwd16::prep_kernel", "bwd16::qkv_kernel"):
+        assert kernel in names[True] and kernel not in names[False]
 
 
 @pytest.mark.cuda

@@ -501,15 +501,17 @@ int prepare(F kernel, size_t smem) {
 
 // ------------------------------------------------------ bf16 backward, wgmma
 //
-// One call: prep_kernel, then q_kernel and kv_kernel, which read only what
-// prep_kernel wrote and so do not depend on each other.
+// Two launches a call: prep_kernel, then qkv_kernel, whose blocks take the q
+// pass (blockIdx.z = 0) or the kv pass (1).  The passes read only what prep
+// wrote, so they share one launch and its waves of blocks.
 //   prep   one block per (64-row tile, batch·head): bf16 copies of q̂ =
 //          bf16(q·scale), k, v and dO in a tiled layout, each tile of 64
 //          rows [d/8][64][8] (so the 8 rows × 16 bytes of a core matrix of
 //          wgmma are contiguous, for K-major and MN-major reads alike, and a
 //          tile is one bulk copy); per row lse (+inf past T), D = rowsum(dO ∘
 //          O) and the row's hash key; per row q̂·rel_k and dO·rel_v; per key
-//          1 (kept), 0 (masked) or −1 (past T).
+//          1 (kept), 0 (masked) or −1 (past T).  It reads q, k, v and dO in
+//          their own type (f32 or bf16) through their strides.
 //   q      a warpgroup owns 64 query rows and walks the key tiles, streamed by
 //          bulk copies into two buffers: S = q̂·Kᵀ and dPd = dO·Vᵀ (m64n64k16,
 //          both operands K-major), p, the keep hash, pd and ds in registers,
@@ -523,10 +525,18 @@ int prepare(F kernel, size_t smem) {
 //          intermediate goes through shared memory.
 // Both passes recompute S and dPd (7 T×T products against the bound's 5) so
 // that no sum needs atomics: the gradients are the same bits in every run.
+// What bounds it: 10·T²·d bf16 flops per batch-head (25 µs at T = 1024,
+// B·H = 24) and ~40 instructions of elementwise work per element and pass
+// (exp, the keep hash, the band).  A warpgroup waits for its own products
+// before its elementwise work and for that work before its next products;
+// only the other block on the SM fills the waits
+// (tools/ablate_rel_attention_train.py takes each part out).  The band's
+// terms and stores are compiled only into the tile pairs the band crosses.
 // ptxas serializes every wgmma of a kernel that calls a function, branches
 // divergently or moves accumulators between two of them: the band, the key
-// mask and the band's stores are selects, the copies are predicated inside
-// their asm, and 1/(1 − rate) and the scale come from the host.
+// mask and the band's stores are selects, the choice of a banded tile pair
+// is made uniform by a shuffle, the copies are predicated inside their asm,
+// and 1/(1 − rate) and the scale come from the host.
 
 namespace bwd16 {
 
@@ -653,8 +663,7 @@ __device__ __forceinline__ void load8(float (&x)[8], const float* p) {
   const float4 c = __ldg(reinterpret_cast<const float4*>(p) + 1);
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w; x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
 }
-__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ void unpack8(float (&x)[8], uint4 u) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -662,8 +671,9 @@ __device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
     x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
 }
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return bf(*p); }
+__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
+  unpack8(x, __ldg(reinterpret_cast<const uint4*>(p)));
+}
 
 // the dropout factor of (row key, key column): 0 or 1/(1 − rate); 1 without dropout
 template <bool DROP>
@@ -701,18 +711,21 @@ prep_kernel(Srcs src, const float* __restrict__ o, const float* __restrict__ lse
             __nv_bfloat16* __restrict__ doh, float* __restrict__ stat, float* __restrict__ band,
             float* __restrict__ kinfo, int H, int T, int Tp, int n_rel, int window,
             uint32_t seed, float scale) {
-  constexpr int NC = D / 8, TILE = NC * BT * 8;
+  constexpr int NC = D / 8, TILE = NC * BT * 8, RS = D + 4;
   __shared__ __align__(16) __nv_bfloat16 qs[TILE], ds[TILE];
-  __shared__ float rks[MAXW * D], rvs[MAXW * D];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __shared__ __align__(16) float rks[MAXW * RS], rvs[MAXW * RS];   // rows padded: the band
+  __shared__ float dsum[BT][NC + 1];                                 // loop's w hit other banks
+  const int tid = threadIdx.x;
   const int tile = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H, t0 = tile * BT;
   const int W = 2 * window + 1, nt = Tp / BT;
   const size_t at0 = ((size_t)bh * nt + tile) * TILE;
+  // the copies, and D = rowsum(dO ∘ O) in f32 as 8-column partial sums
   for (int i = tid; i < BT * NC; i += NT) {
     const int r = i / NC, c = i - r * NC, t = t0 + r;
     uint4 pq = make_uint4(0, 0, 0, 0), pk = pq, pv = pq, pd = pq;
+    float part = 0.f;
     if (t < T) {
-      float x[8];
+      float x[8], y[8];
       load8(x, row_of<IN>(src.q, b, h, t) + 8 * c);
       pq = make_uint4(pack2(x[0] * scale, x[1] * scale), pack2(x[2] * scale, x[3] * scale),
                       pack2(x[4] * scale, x[5] * scale), pack2(x[6] * scale, x[7] * scale));
@@ -722,7 +735,11 @@ prep_kernel(Srcs src, const float* __restrict__ o, const float* __restrict__ lse
       pv = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
       load8(x, row_of<IN>(src.dout, b, h, t) + 8 * c);
       pd = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
+      load8(y, o + ((size_t)bh * T + t) * D + 8 * c);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) part += x[e] * y[e];
     }
+    dsum[r][c] = part;
     const size_t at = ((size_t)c * BT + r) * 8;
     *reinterpret_cast<uint4*>(qh + at0 + at) = pq;
     *reinterpret_cast<uint4*>(kh + at0 + at) = pk;
@@ -734,38 +751,44 @@ prep_kernel(Srcs src, const float* __restrict__ o, const float* __restrict__ lse
   const size_t rel = (size_t)(n_rel > 1 ? h : 0) * W * D;
   for (int i = tid; i < MAXW * D; i += NT) {
     const bool in = i < W * D;
-    rks[i] = in ? rnd<true>(rel_k[rel + i]) : 0.f;
-    rvs[i] = in ? rnd<true>(rel_v[rel + i]) : 0.f;
-  }
-  // D = rowsum(dO ∘ O) in f32, one warp a row
-  float* st = stat + ((size_t)bh * nt + tile) * 3 * BT;
-  const uint32_t bkey = fmix32(seed ^ (uint32_t)(bh + 1) * 0x9E3779B1u);
-  for (int r = warp; r < BT; r += NT / 32) {
-    const int t = t0 + r;
-    float s = 0.f;
-    if (t < T) {
-      const IN* dr = row_of<IN>(src.dout, b, h, t);
-      for (int c = lane; c < D; c += 32) s += load1(dr + c) * o[((size_t)bh * T + t) * D + c];
-    }
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      st[r] = t < T ? lse[(size_t)bh * T + t] : INFINITY;
-      st[BT + r] = s;
-      st[2 * BT + r] = __uint_as_float(fmix32(bkey ^ (uint32_t)(t + 1) * 0x85EBCA77u));
-    }
+    const int at = (i / D) * RS + i % D;
+    rks[at] = in ? rnd<true>(rel_k[rel + i]) : 0.f;
+    rvs[at] = in ? rnd<true>(rel_v[rel + i]) : 0.f;
   }
   __syncthreads();
-  for (int i = tid; i < BT * BAND; i += NT) {
-    const int r = i / BAND, x = i - r * BAND, w = x % MAXW;
-    const __nv_bfloat16* a = x < MAXW ? qs : ds;
-    const float* tab = (x < MAXW ? rks : rvs) + w * D;
-    float s = 0.f;
-    for (int c = 0; c < D; ++c) s += bf(a[((c >> 3) * BT + r) * 8 + (c & 7)]) * tab[c];
-    band[((size_t)bh * Tp + t0 + r) * BAND + x] = s;
-  }
-  if (h == 0 && tid < BT) {
+  if (tid < BT) {
     const int t = t0 + tid;
-    kinfo[(size_t)b * Tp + t] = t < T ? (mask[(size_t)b * T + t] > 0.f ? 1.f : 0.f) : -1.f;
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) d += dsum[tid][c];
+    float* st = stat + ((size_t)bh * nt + tile) * 3 * BT;
+    const uint32_t bkey = fmix32(seed ^ (uint32_t)(bh + 1) * 0x9E3779B1u);
+    st[tid] = t < T ? lse[(size_t)bh * T + t] : INFINITY;
+    st[BT + tid] = d;
+    st[2 * BT + tid] = __uint_as_float(fmix32(bkey ^ (uint32_t)(t + 1) * 0x85EBCA77u));
+    if (h == 0)
+      kinfo[(size_t)b * Tp + t] = t < T ? (mask[(size_t)b * T + t] > 0.f ? 1.f : 0.f) : -1.f;
+  }
+  // q̂·rel_k[w] and dO·rel_v[w] of each row, bf16 operands, f32 sums
+  for (int i = tid; i < BT * MAXW; i += NT) {
+    const int r = i / MAXW, w = i - r * MAXW;
+    float sq = 0.f, sd = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < NC; ++c) {
+      float a[8], e[8];
+      unpack8(a, *reinterpret_cast<const uint4*>(qs + (c * BT + r) * 8));
+      unpack8(e, *reinterpret_cast<const uint4*>(ds + (c * BT + r) * 8));
+      const float4* kq = reinterpret_cast<const float4*>(rks + w * RS + 8 * c);
+      const float4* kd = reinterpret_cast<const float4*>(rvs + w * RS + 8 * c);
+      const float4 k0 = kq[0], k1 = kq[1], d0 = kd[0], d1 = kd[1];
+      sq += a[0] * k0.x + a[1] * k0.y + a[2] * k0.z + a[3] * k0.w + a[4] * k1.x + a[5] * k1.y +
+            a[6] * k1.z + a[7] * k1.w;
+      sd += e[0] * d0.x + e[1] * d0.y + e[2] * d0.z + e[3] * d0.w + e[4] * d1.x + e[5] * d1.y +
+            e[6] * d1.z + e[7] * d1.w;
+    }
+    float* row = band + ((size_t)bh * Tp + t0 + r) * BAND;
+    row[w] = sq;
+    row[MAXW + w] = sd;
   }
 }
 
@@ -800,6 +823,12 @@ static_assert(offsetof(QSmem<96>, ki) % 16 == 0 && offsetof(QSmem<96>, st) % 16 
               offsetof(KVSmem<96>, ki) % 16 == 0 && offsetof(KVSmem<64>, ki) % 16 == 0,
               "bulk copies need 16-byte aligned destinations");
 
+// a tile pair the band crosses, or one it does not
+template <bool B>
+struct Banded {
+  static constexpr bool value = B;
+};
+
 // the A fragments of a k16 step from an m64n64 accumulator's values, two
 // n8 blocks (i = 2kk, 2kk + 1) a step: a[kk][2·(i & 1) + hr] holds rows
 // g + 8·hr, columns 8i + 2tq and 8i + 2tq + 1
@@ -808,15 +837,14 @@ __device__ __forceinline__ void to_frag(uint32_t (&a)[4][4], int i, int hr, floa
 }
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT, 1)
-q_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
+__device__ __forceinline__ void
+q_pass(unsigned char* raw, const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
          const __nv_bfloat16* __restrict__ vh, const __nv_bfloat16* __restrict__ doh,
          const float* __restrict__ stat, const float* __restrict__ band,
          const float* __restrict__ kinfo, const float* __restrict__ rel_k,
          float* __restrict__ dq, float* __restrict__ part_k, float* __restrict__ part_v, int H,
          int T, int Tp, int n_rel, int window, uint32_t thresh, float inv_keep, float scale) {
   constexpr int TILE = QSmem<D>::TILE, NA = D / 2;
-  extern __shared__ __align__(128) unsigned char raw[];
   QSmem<D>& sm = *reinterpret_cast<QSmem<D>*>(raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
   const int tile = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H, t0 = tile * BT;
@@ -892,30 +920,41 @@ q_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__
 
     uint32_t a[4][4];
     const int k0 = kt * BT;
+    // the elements of this tile pair: p, pd, ds; the band's terms and
+    // stores only on the tiles it crosses (a warp-uniform choice)
+    auto step = [&](auto tag) {
+      constexpr bool banded = decltype(tag)::value;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float o2[2];
+        for (int hr = 0; hr < 2; ++hr) {
+          float o2[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int x = 4 * i + 2 * hr + e, jl = 8 * i + 2 * tq + e, j = k0 + jl;
-          const int delta = j - (t0 + rl[hr]);
-          const bool in_band = delta >= -window && delta <= window;
-          const int bi = min(max(delta + window, 0), MAXW - 1);
-          const float kin = sm.ki[buf][jl];
-          float sc = s[x] + (in_band ? sm.band[rl[hr]][bi] : 0.f);
-          sc = kin > 0.f ? sc : NEG_FILL;
-          const float p = kin >= 0.f ? __expf(sc - lse_r[hr]) : 0.f;
-          const float kf = keep_f<DROP>(rk_r[hr], (uint32_t)(j + 1) * K_COL, thresh, inv_keep);
-          const float dpd = dp[x] + (in_band ? sm.band[rl[hr]][MAXW + bi] : 0.f);
-          const float dsv = p * (dpd * kf - dd_r[hr]);
-          *(in_band ? &sm.dsd[rl[hr]][bi] : &sm.sink[tid]) = dsv;
-          *(in_band ? &sm.pdd[rl[hr]][bi] : &sm.sink[tid]) = p * kf;
-          o2[e] = dsv;
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * i + 2 * hr + e, jl = 8 * i + 2 * tq + e, j = k0 + jl;
+            const int delta = j - (t0 + rl[hr]);
+            const bool in_band = banded && delta >= -window && delta <= window;
+            const int bi = min(max(delta + window, 0), MAXW - 1);
+            const float kin = sm.ki[buf][jl];
+            float sc = s[x] + (in_band ? sm.band[rl[hr]][bi] : 0.f);
+            sc = kin > 0.f ? sc : NEG_FILL;
+            const float p = kin >= 0.f ? __expf(sc - lse_r[hr]) : 0.f;
+            const float kf = keep_f<DROP>(rk_r[hr], (uint32_t)(j + 1) * K_COL, thresh, inv_keep);
+            const float dpd = dp[x] + (in_band ? sm.band[rl[hr]][MAXW + bi] : 0.f);
+            const float dsv = p * (dpd * kf - dd_r[hr]);
+            if (banded) {
+              *(in_band ? &sm.dsd[rl[hr]][bi] : &sm.sink[tid]) = dsv;
+              *(in_band ? &sm.pdd[rl[hr]][bi] : &sm.sink[tid]) = p * kf;
+            }
+            o2[e] = dsv;
+          }
+          to_frag(a, i, hr, o2[0], o2[1]);
         }
-        to_frag(a, i, hr, o2[0], o2[1]);
-      }
+    };
+    if (__shfl_sync(0xffffffffu, abs(kt - tile) <= 1, 0))
+      step(Banded<true>{});
+    else
+      step(Banded<false>{});
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -969,14 +1008,13 @@ q_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__
 }
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(NT, 1)
-kv_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
+__device__ __forceinline__ void
+kv_pass(unsigned char* raw, const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
           const __nv_bfloat16* __restrict__ vh, const __nv_bfloat16* __restrict__ doh,
           const float* __restrict__ stat, const float* __restrict__ band,
           const float* __restrict__ kinfo, float* __restrict__ dk, float* __restrict__ dv, int H,
           int T, int Tp, int window, uint32_t thresh, float inv_keep) {
   constexpr int TILE = KVSmem<D>::TILE, NA = D / 2;
-  extern __shared__ __align__(128) unsigned char raw[];
   KVSmem<D>& sm = *reinterpret_cast<KVSmem<D>*>(raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
   const int tile = blockIdx.x, bh = blockIdx.y, b = bh / H, j0 = tile * BT;
@@ -1050,29 +1088,36 @@ kv_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict_
 
     uint32_t apd[4][4], ads[4][4];
     const int t0 = qt * BT;
+    auto step = [&](auto tag) {
+      constexpr bool banded = decltype(tag)::value;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float pd2[2], ds2[2];
+        for (int hr = 0; hr < 2; ++hr) {
+          float pd2[2], ds2[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int x = 4 * i + 2 * hr + e, tl = 8 * i + 2 * tq + e;
-          const int delta = j0 + jl[hr] - (t0 + tl);
-          const bool in_band = delta >= -window && delta <= window;
-          const int bi = min(max(delta + window, 0), MAXW - 1);
-          float sc = s[x] + (in_band ? sm.band[buf][tl][bi] : 0.f);
-          sc = kin[hr] > 0.f ? sc : NEG_FILL;
-          const float p = kin[hr] >= 0.f ? __expf(sc - sm.st[buf][0][tl]) : 0.f;
-          const float kf =
-              keep_f<DROP>(__float_as_uint(sm.st[buf][2][tl]), jk[hr], thresh, inv_keep);
-          const float dpd = dp[x] + (in_band ? sm.band[buf][tl][MAXW + bi] : 0.f);
-          pd2[e] = p * kf;
-          ds2[e] = p * (dpd * kf - sm.st[buf][1][tl]);
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * i + 2 * hr + e, tl = 8 * i + 2 * tq + e;
+            const int delta = j0 + jl[hr] - (t0 + tl);
+            const bool in_band = banded && delta >= -window && delta <= window;
+            const int bi = min(max(delta + window, 0), MAXW - 1);
+            float sc = s[x] + (in_band ? sm.band[buf][tl][bi] : 0.f);
+            sc = kin[hr] > 0.f ? sc : NEG_FILL;
+            const float p = kin[hr] >= 0.f ? __expf(sc - sm.st[buf][0][tl]) : 0.f;
+            const float kf =
+                keep_f<DROP>(__float_as_uint(sm.st[buf][2][tl]), jk[hr], thresh, inv_keep);
+            const float dpd = dp[x] + (in_band ? sm.band[buf][tl][MAXW + bi] : 0.f);
+            pd2[e] = p * kf;
+            ds2[e] = p * (dpd * kf - sm.st[buf][1][tl]);
+          }
+          to_frag(apd, i, hr, pd2[0], pd2[1]);
+          to_frag(ads, i, hr, ds2[0], ds2[1]);
         }
-        to_frag(apd, i, hr, pd2[0], pd2[1]);
-        to_frag(ads, i, hr, ds2[0], ds2[1]);
-      }
+    };
+    if (__shfl_sync(0xffffffffu, abs(qt - tile) <= 1, 0))
+      step(Banded<true>{});
+    else
+      step(Banded<false>{});
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -1101,6 +1146,30 @@ kv_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict_
     }
 }
 
+// both passes in one launch, so that they share the waves of blocks:
+// blockIdx.z = 0 is the q pass, 1 the kv pass (a choice uniform in a block)
+template <int D, bool DROP>
+__global__ void __launch_bounds__(NT, 1)
+qkv_kernel(const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
+           const __nv_bfloat16* __restrict__ vh, const __nv_bfloat16* __restrict__ doh,
+           const float* __restrict__ stat, const float* __restrict__ band,
+           const float* __restrict__ kinfo, const float* __restrict__ rel_k,
+           float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+           float* __restrict__ part_k, float* __restrict__ part_v, int H, int T, int Tp,
+           int n_rel, int window, uint32_t thresh, float inv_keep, float scale) {
+  extern __shared__ __align__(128) unsigned char raw[];
+  if (blockIdx.z == 0)
+    q_pass<D, DROP>(raw, qh, kh, vh, doh, stat, band, kinfo, rel_k, dq, part_k, part_v, H, T,
+                    Tp, n_rel, window, thresh, inv_keep, scale);
+  else
+    kv_pass<D, DROP>(raw, qh, kh, vh, doh, stat, band, kinfo, dk, dv, H, T, Tp, window, thresh,
+                     inv_keep);
+}
+
+template <int D>
+constexpr size_t QKV_SMEM = sizeof(QSmem<D>) > sizeof(KVSmem<D>) ? sizeof(QSmem<D>)
+                                                                  : sizeof(KVSmem<D>);
+
 template <int D, typename IN>
 int backward(const Srcs& src, const float* o, const float* lse, const float* mask,
              const float* rel_k, const float* rel_v, __nv_bfloat16* qh, __nv_bfloat16* kh,
@@ -1110,17 +1179,14 @@ int backward(const Srcs& src, const float* o, const float* lse, const float* mas
              cudaStream_t s) {
   const int Tp = (T + BT - 1) / BT * BT;
   const dim3 grid(Tp / BT, B * H);
-  auto qk = thresh ? q_kernel<D, true> : q_kernel<D, false>;
-  auto kvk = thresh ? kv_kernel<D, true> : kv_kernel<D, false>;
-  int err = prepare(qk, sizeof(QSmem<D>));
-  if (!err) err = prepare(kvk, sizeof(KVSmem<D>));
+  auto qkv = thresh ? qkv_kernel<D, true> : qkv_kernel<D, false>;
+  const int err = prepare(qkv, QKV_SMEM<D>);
   if (err) return err;
   prep_kernel<D, IN><<<grid, NT, 0, s>>>(src, o, lse, mask, rel_k, rel_v, qh, kh, vh, doh, stat,
                                          band, kinfo, H, T, Tp, n_rel, window, seed, scale);
-  qk<<<grid, NT, sizeof(QSmem<D>), s>>>(qh, kh, vh, doh, stat, band, kinfo, rel_k, dq, part_k,
-                                        part_v, H, T, Tp, n_rel, window, thresh, inv, scale);
-  kvk<<<grid, NT, sizeof(KVSmem<D>), s>>>(qh, kh, vh, doh, stat, band, kinfo, dk, dv, H, T, Tp,
-                                          window, thresh, inv);
+  qkv<<<dim3(grid.x, grid.y, 2), NT, QKV_SMEM<D>, s>>>(qh, kh, vh, doh, stat, band, kinfo, rel_k,
+                                                       dq, dk, dv, part_k, part_v, H, T, Tp,
+                                                       n_rel, window, thresh, inv, scale);
   return (int)cudaGetLastError();
 }
 

@@ -7,9 +7,18 @@ relative_self_attention_train`` (custom VJP; bodies ``_fwd_kernel`` and
 
 * forward: kernel A's online softmax, plus the per-row logsumexp and the
   dropout keep mask on the probabilities;
-* backward: one pass per 32 query rows (dq, the banded drel_k / drel_v
-  partial sums per tile, and D = rowsum(dO ∘ O)), then one pass per 32
-  keys (dk, dv); both rebuild p = exp(s − lse) and the same keep mask.
+* backward with bf16 operands (``bf16_compute``): one library call of two
+  launches on wgmma bf16.  A prep kernel makes bf16 copies of q̂ = bf16(q·
+  scale), k, v and dO once a call, in 64-row tiles of wgmma core matrices
+  (``to_bwd_tiles``), with each row's lse, D = rowsum(dO ∘ O), hash key and
+  band terms; then the q pass (64 query rows a warpgroup: dq and the
+  banded drel_k / drel_v partial sums per tile) and the kv pass (64 keys a
+  warpgroup, the transposed products: dk, dv) run in one launch.
+  ``relative_self_attention_train_tiled_bwd`` is its data flow in plain
+  PyTorch, which the CPU tests hold to the plain backward;
+* backward in f32: one pass per 32 query rows, then one per 32 keys, on
+  CUDA cores.  Every backward rebuilds p = exp(s − lse) and the same keep
+  mask.
 
 The keep mask is a counter-based hash of (seed, b·H + h, query row, key
 column) (``dropout_keep``), so it does not depend on any tiling: the
@@ -19,8 +28,9 @@ differ, so against JAX only rate 0 compares.
 
 Key positions are masked with −1e4, as kernel A does, so wholly masked rows
 stay finite and padded key columns get exactly zero dk and dv.  Compute-
-bound (4·T²·d flops forward, ~2.5× that backward, per batch-head); f32
-CUDA cores in this version.
+bound (4·T²·d flops forward, 2.5× that backward, per batch-head).  The
+forward and the f32 backward run on CUDA cores.  The drel partial sums are
+added in a fixed order: no atomics, the same bits from run to run.
 """
 
 from __future__ import annotations
@@ -190,9 +200,10 @@ def bwd_rows(T: int):
 
 
 def bwd_grid(B: int, H: int, T: int) -> dict:
-    """The bf16 backward's launches: (grid, threads) of prep, q and kv."""
-    grid = ((bwd_rows(T)[1], B * H), 128)
-    return {"prep": grid, "q": grid, "kv": grid}
+    """The bf16 backward's two launches, (grid, threads) each: prep, and both
+    passes in one (z = 0 the q pass, 1 the kv pass)."""
+    nt = bwd_rows(T)[1]
+    return {"prep": ((nt, B * H), 128), "qkv": ((nt, B * H, 2), 128)}
 
 
 def to_bwd_tiles(x: torch.Tensor, Tp: int) -> torch.Tensor:
@@ -279,16 +290,18 @@ def _tile_probs(s, dp, qb, db, lse, dd, rk, kinfo, j, thresh, inv):
 
 
 def relative_self_attention_train_tiled_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse,
-                                            seed: int, rate: float, window: int = 4):
+                                            seed: int, rate: float, window: int = 4,
+                                            prep=None):
     """The bf16 backward's data flow in plain PyTorch (CPU): ``bwd_prep``'s
-    tiled copies, the q pass over 64-row tiles with its per-tile band
-    partials, the kv pass over 64-key tiles with the transposed products,
-    and the partials summed in a fixed order.  → (dq, dk, dv, drel_k, drel_v)."""
+    tiled copies (or ``prep``, such a dict), the q pass over 64-row tiles
+    with its per-tile band partials, the kv pass over 64-key tiles with the
+    transposed products, and the partials summed in a fixed order.
+    → (dq, dk, dv, drel_k, drel_v)."""
     B, H, T, d = q.shape
     BH, W, n_rel = B * H, 2 * window + 1, rel_k.shape[0]
     Tp, nt = bwd_rows(T)
     bt = BWD_TILE
-    pre = bwd_prep(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, window)
+    pre = prep or bwd_prep(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, window)
     qh, kh, vh, doh = (from_bwd_tiles(pre[n]) for n in ("qh", "kh", "vh", "doh"))
     stat, band = pre["stat"], pre["band"]
     kinfo = pre["kinfo"].repeat_interleave(H, 0)            # [BH, Tp]
@@ -344,10 +357,8 @@ def relative_self_attention_train_tiled_bwd(dout, q, k, v, rel_k, rel_v, key_mas
         dk[:, keys] = gk
         dv[:, keys] = gv
     shape = lambda x: x[:, :T].reshape(B, H, T, d)  # noqa: E731
-    dims = (0, 1) if n_rel == 1 else (0,)
-    drel_k = part_k.reshape(B, H, nt, W, d).sum(dim=2).sum(dim=dims).reshape(n_rel, W, d)
-    drel_v = part_v.reshape(B, H, nt, W, d).sum(dim=2).sum(dim=dims).reshape(n_rel, W, d)
-    return shape(dq), shape(dk), shape(dv), drel_k, drel_v
+    return (shape(dq), shape(dk), shape(dv)) + _sum_partials(
+        torch.stack((part_k, part_v)), B, H, n_rel)
 
 
 def _fn(lib, name, n_ptr, n_int):
@@ -389,12 +400,13 @@ def _launch_fwd(q, k, v, rel_k, rel_v, key_mask, seed, rate, window, bf16):
     return out, lse
 
 
-def _sum_partials(part_k, part_v, B, H, n_rel):
-    """The per-tile drel partials [B·H, tiles, W, d], summed in a fixed order."""
-    W, d = part_k.shape[-2:]
-    dims = (0, 1) if n_rel == 1 else (0,)
-    return tuple(p.reshape(B, H, -1, W, d).sum(dim=2).sum(dim=dims).reshape(n_rel, W, d)
-                 for p in (part_k, part_v))
+def _sum_partials(parts, B, H, n_rel):
+    """The per-tile drel partials [2, B·H, tiles, W, d] (k, then v), summed
+    in a fixed order → (drel_k, drel_v) [n_rel, W, d]."""
+    W, d = parts.shape[-2:]
+    sums = parts.view(2, B, H, -1, W, d).sum(dim=3)
+    sums = sums.sum(dim=(1, 2)) if n_rel == 1 else sums.sum(dim=1)
+    return tuple(sums.reshape(2, n_rel, W, d))
 
 
 def _launch_bwd_f32(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window):
@@ -407,50 +419,52 @@ def _launch_bwd_f32(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate,
     rowd = torch.empty(B, H, T, device=q.device)             # D = rowsum(dO ∘ O)
     qrel = torch.empty(B, H, T, W, device=q.device)          # q̂·rel_k per row
     dorel = torch.empty_like(qrel)                           # dO·rel_v per row
-    part_k = torch.empty(B * H, n_tiles, W, d, device=q.device)
-    part_v = torch.empty_like(part_k)
+    parts = torch.empty(2, B * H, n_tiles, W, d, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (B, H, T, d, n_rel, window, seed & 0xFFFFFFFF, keep_threshold(rate), rate, stream)
     fn_q = _fn(lib, "rel_attn_train_bwd_q", 15, 6)
     status = fn_q(*(t.data_ptr() for t in args), dq.data_ptr(), rowd.data_ptr(),
-                  qrel.data_ptr(), dorel.data_ptr(), part_k.data_ptr(), part_v.data_ptr(),
+                  qrel.data_ptr(), dorel.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
                   *common)
     _build.check(status, "rel_attention_train backward (dq)")
     fn_kv = _fn(lib, "rel_attn_train_bwd_kv", 11, 6)
     status = fn_kv(*(args[i].data_ptr() for i in (0, 1, 2, 5, 7, 8)), rowd.data_ptr(),
                    qrel.data_ptr(), dorel.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common)
     _build.check(status, "rel_attention_train backward (dk, dv)")
-    return (dq, dk, dv) + _sum_partials(part_k, part_v, B, H, n_rel)
+    return (dq, dk, dv) + _sum_partials(parts, B, H, n_rel)
+
+
+_BF16_ARGS = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
+              + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
 
 
 def _launch_bwd_bf16(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window):
     B, H, T, d = q.shape
-    n_rel, W = rel_k.shape[0], 2 * window + 1
-    lib = _build.load("rel_attention_train")
-    if lib.rel_attn_train_bwd_tile() != BWD_TILE:
+    BH, n_rel, W = B * H, rel_k.shape[0], 2 * window + 1
+    if _build.function("rel_attention_train", "rel_attn_train_bwd_tile", [])() != BWD_TILE:
         raise RuntimeError("csrc/rel_attention_train.cu's bf16 backward tile is not BWD_TILE")
+    fn = _build.function("rel_attention_train", "rel_attn_train_bwd_bf16", _BF16_ARGS)
     Tp, nt = bwd_rows(T)
     bf16_in = all(t.dtype == torch.bfloat16 for t in (q, k, v, dout))
     ops = [_operand(t, bf16_in) for t in (q, k, v, dout)]
     strides = (ctypes.c_longlong * 16)(*(x for t in ops for x in (*t.stride()[:3], 0)))
     rest = [_f32(t) for t in (out, lse, key_mask, rel_k, rel_v)]
     dev = q.device
-    copies = torch.empty(4, B * H, Tp * d, dtype=torch.bfloat16, device=dev)
-    stat = torch.empty(B * H, nt, 3, BWD_TILE, device=dev)
-    band = torch.empty(B * H, Tp, BAND_ROW, device=dev)
-    kinfo = torch.empty(B, Tp, device=dev)
-    dq, dk, dv = (torch.empty(B, H, T, d, device=dev) for _ in range(3))
-    part_k = torch.empty(B * H, nt, W, d, device=dev)
-    part_v = torch.empty_like(part_k)
-    fn = _fn(lib, "rel_attn_train_bwd_bf16", 22, 7)
+    copies = torch.empty(4, BH * Tp * d, dtype=torch.bfloat16, device=dev)   # qh, kh, vh, doh
+    # f32 scratch and outputs in one allocation: stat, band, kinfo, dq, dk, dv, parts
+    sizes = (BH * Tp * 3, BH * Tp * BAND_ROW, B * Tp, BH * T * d, BH * T * d, BH * T * d,
+             2 * BH * nt * W * d)
+    stat, band, kinfo, dq, dk, dv, parts = torch.empty(sum(sizes), device=dev).split(sizes)
     status = fn(*(t.data_ptr() for t in ops), ctypes.addressof(strides),
                 *(t.data_ptr() for t in rest), *(c.data_ptr() for c in copies),
                 stat.data_ptr(), band.data_ptr(), kinfo.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), part_k.data_ptr(), part_v.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), parts.data_ptr(), parts[BH * nt * W * d:].data_ptr(),
                 B, H, T, d, n_rel, window, int(bf16_in), seed & 0xFFFFFFFF,
                 keep_threshold(rate), rate, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "rel_attention_train bf16 backward")
-    return (dq, dk, dv) + _sum_partials(part_k, part_v, B, H, n_rel)
+    shape = (B, H, T, d)
+    return (dq.view(shape), dk.view(shape), dv.view(shape)) + _sum_partials(
+        parts.view(2, BH, nt, W, d), B, H, n_rel)
 
 
 def _launch_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window, bf16):
