@@ -477,7 +477,7 @@ def test_rel_attention_train_backward_kernels_by_precision(device):
         out, lse = rel_attention_train._launch_fwd(*args, 3, 0.1, 4, bf16)
         names[bf16] = _device_kernels(lambda: rel_attention_train._launch_bwd(
             dout, *args, out, lse, 3, 0.1, 4, bf16))
-    for kernel in ("bwd_q_kernel<96, false>", "bwd_kv_kernel<96, false>"):
+    for kernel in ("bwd_q_kernel<96>", "bwd_kv_kernel<96>"):
         assert kernel in names[False] and kernel not in names[True]
     for kernel in ("bwd16::prep_kernel", "bwd16::qkv_kernel"):
         assert kernel in names[True] and kernel not in names[False]

@@ -15,23 +15,24 @@
 //
 //   fwd      one block per (batch·head, 32 query rows), keys in tiles of 32
 //            with an online softmax (kernel A's scheme): out and lse.
-//   bwd_q    one block per (batch·head, 32 query rows): D = rowsum(dO ∘ O),
+//   bwd_q    (f32) one block per (batch·head, 32 query rows): D = rowsum(dO ∘ O),
 //            q̂·rel_k and dO·rel_v per row (kept for bwd_kv), then over key
 //            tiles p = exp(s − lse), dp = (dO·v + band dO·rel_v)·keep/(1−r),
 //            ds = p·(dp − D); dq = (ds·k + band ds·rel_k)/√d, and the tile's
 //            partial drel_k = Σ_t ds[t, t+δ]·q̂[t], drel_v = Σ_t pd[t, t+δ]·dO[t].
-//   bwd_kv   one block per (batch·head, 32 keys), over query tiles:
+//   bwd_kv   (f32) one block per (batch·head, 32 keys), over query tiles:
 //            dk = Σ_t ds[t, j]·q̂[t], dv = Σ_t pd[t, j]·dO[t].
 //
 // keep(t, j) = hash(seed, b·H + h, t, j) ≥ rate·2³² with the hash below, so
 // the mask does not depend on the tiling and the backward regenerates the
 // forward's mask bit for bit (the port's plain version computes the same).
 //
-// BF16 = true rounds every matmul operand to bf16 as the TPU kernel's
-// bf16_compute does (q̂, k, v, dO, rel tables in their products, p and ds
-// before their products); the softmax, lse and every accumulation stay f32.
-// The forward rounds the online softmax's unnormalised weights, which agrees
-// with rounding the normalised ones to one bf16 rounding.
+// bf16 operands (the forward's BF16 = true, and the bf16 backward) round
+// every matmul operand to bf16 as the TPU kernel's bf16_compute does (q̂, k,
+// v, dO, rel tables in their products, p and ds before their products); the
+// softmax, lse and every accumulation stay f32.  The forward rounds the
+// online softmax's unnormalised weights, which agrees with rounding the
+// normalised ones to one bf16 rounding.
 //
 // Bound: 4·T²·d flops forward and 10·T²·d backward per batch-head (five
 // T×T products) against ~T·d·4·6 bytes: compute-bound.  The forward and the
@@ -227,7 +228,7 @@ struct BwdQSmem {
   float lse[BQ], dd[BQ], km[BK];
 };
 
-template <int D, bool BF16>
+template <int D>
 __global__ void __launch_bounds__(NWARP * 32)
 bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ rel_k,
@@ -250,8 +251,8 @@ bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* rk = rel_k + (size_t)(n_rel > 1 ? h : 0) * W * D;
   const float* rv = rel_v + (size_t)(n_rel > 1 ? h : 0) * W * D;
 
-  load_rows<D, BF16>(&sm.qs[0][0], KS, q + base, q0, T, scale);
-  load_rows<D, BF16>(&sm.dos[0][0], KS, dout + base, q0, T, 1.f);
+  load_rows<D, false>(&sm.qs[0][0], KS, q + base, q0, T, scale);
+  load_rows<D, false>(&sm.dos[0][0], KS, dout + base, q0, T, 1.f);
   for (int i = tid; i < W * D; i += blockDim.x) sm.rks[i / D][i % D] = rk[i];
   for (int i = tid; i < BQ * MAXW; i += blockDim.x) {
     sm.dsd[i / MAXW][i % MAXW] = 0.f;
@@ -275,8 +276,8 @@ bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / W, w = i % W, t = q0 + r;
     float a = 0.f, c2 = 0.f;
     for (int c = 0; c < D; ++c) {
-      a += sm.qs[r][c] * rnd<BF16>(rk[w * D + c]);
-      c2 += sm.dos[r][c] * rnd<BF16>(rv[w * D + c]);
+      a += sm.qs[r][c] * rk[w * D + c];
+      c2 += sm.dos[r][c] * rv[w * D + c];
     }
     sm.qr[r][w] = a;
     sm.dorv[r][w] = c2;
@@ -300,8 +301,8 @@ bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK * D; i += blockDim.x) {
       const int j = i / D, c = i % D, key = k0 + j;
       const bool in = key < T;
-      sm.ks[j][c] = in ? rnd<BF16>(k[base + (size_t)key * D + c]) : 0.f;
-      sm.vs[j][c] = in ? rnd<BF16>(v[base + (size_t)key * D + c]) : 0.f;
+      sm.ks[j][c] = in ? k[base + (size_t)key * D + c] : 0.f;
+      sm.vs[j][c] = in ? v[base + (size_t)key * D + c] : 0.f;
     }
     if (tid < BK) sm.km[tid] = (k0 + tid < T) ? mask[(size_t)b * T + k0 + tid] : 0.f;
     __syncthreads();
@@ -328,7 +329,7 @@ bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
           sm.pdd[r][delta + window] = p * kf;
         }
       }
-      sm.ps[warp][i][lane] = rnd<BF16>(ds);
+      sm.ps[warp][i][lane] = ds;
     }
     __syncwarp();
     const int nk = min(BK, T - k0);
@@ -365,8 +366,8 @@ bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int w = i / D, c = i % D;
     float sk = 0.f, sv = 0.f;
     for (int r = 0; r < BQ; ++r) {
-      sk += rnd<BF16>(sm.dsd[r][w]) * sm.qs[r][c];
-      sv += rnd<BF16>(sm.pdd[r][w]) * sm.dos[r][c];
+      sk += sm.dsd[r][w] * sm.qs[r][c];
+      sv += sm.pdd[r][w] * sm.dos[r][c];
     }
     pk[i] = sk;
     pv[i] = sv;
@@ -386,7 +387,7 @@ struct BwdKVSmem {
   float lse[BK], dd[BK];
 };
 
-template <int D, bool BF16>
+template <int D>
 __global__ void __launch_bounds__(NWARP * 32)
 bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ mask,
@@ -406,8 +407,8 @@ bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int W = 2 * window + 1;
   const size_t base = (size_t)bh * T * D;
 
-  load_rows<D, BF16>(&sm.ks[0][0], D, k + base, j0, T, 1.f);
-  load_rows<D, BF16>(&sm.vs[0][0], D, v + base, j0, T, 1.f);
+  load_rows<D, false>(&sm.ks[0][0], D, k + base, j0, T, 1.f);
+  load_rows<D, false>(&sm.vs[0][0], D, v + base, j0, T, 1.f);
   float kmask[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
@@ -422,8 +423,8 @@ bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int t0 = 0; t0 < T; t0 += BK) {
     __syncthreads();
-    load_rows<D, BF16>(&sm.qs[0][0], KS, q + base, t0, T, scale);
-    load_rows<D, BF16>(&sm.dos[0][0], KS, dout + base, t0, T, 1.f);
+    load_rows<D, false>(&sm.qs[0][0], KS, q + base, t0, T, scale);
+    load_rows<D, false>(&sm.dos[0][0], KS, dout + base, t0, T, 1.f);
     for (int i = tid; i < BK * W; i += blockDim.x) {
       const int r = i / W, w = i % W, t = t0 + r;
       sm.qr[r][w] = t < T ? qrel[((size_t)bh * T + t) * W + w] : 0.f;
@@ -456,8 +457,8 @@ bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         pd = p * kf;
         ds = p * (dpd * kf - sm.dd[lane]);
       }
-      sm.pt[warp][i][lane] = rnd<BF16>(pd);
-      sm.st[warp][i][lane] = rnd<BF16>(ds);
+      sm.pt[warp][i][lane] = pd;
+      sm.st[warp][i][lane] = ds;
     }
     __syncwarp();
     const int nt = min(BK, T - t0);
@@ -838,12 +839,13 @@ __device__ __forceinline__ void to_frag(uint32_t (&a)[4][4], int i, int hr, floa
 
 template <int D, bool DROP>
 __device__ __forceinline__ void
-q_pass(unsigned char* raw, const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
-         const __nv_bfloat16* __restrict__ vh, const __nv_bfloat16* __restrict__ doh,
-         const float* __restrict__ stat, const float* __restrict__ band,
-         const float* __restrict__ kinfo, const float* __restrict__ rel_k,
-         float* __restrict__ dq, float* __restrict__ part_k, float* __restrict__ part_v, int H,
-         int T, int Tp, int n_rel, int window, uint32_t thresh, float inv_keep, float scale) {
+q_pass(unsigned char* raw, const __nv_bfloat16* __restrict__ qh,
+       const __nv_bfloat16* __restrict__ kh, const __nv_bfloat16* __restrict__ vh,
+       const __nv_bfloat16* __restrict__ doh, const float* __restrict__ stat,
+       const float* __restrict__ band, const float* __restrict__ kinfo,
+       const float* __restrict__ rel_k, float* __restrict__ dq, float* __restrict__ part_k,
+       float* __restrict__ part_v, int H, int T, int Tp, int n_rel, int window, uint32_t thresh,
+       float inv_keep, float scale) {
   constexpr int TILE = QSmem<D>::TILE, NA = D / 2;
   QSmem<D>& sm = *reinterpret_cast<QSmem<D>*>(raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
@@ -1009,11 +1011,12 @@ q_pass(unsigned char* raw, const __nv_bfloat16* __restrict__ qh, const __nv_bflo
 
 template <int D, bool DROP>
 __device__ __forceinline__ void
-kv_pass(unsigned char* raw, const __nv_bfloat16* __restrict__ qh, const __nv_bfloat16* __restrict__ kh,
-          const __nv_bfloat16* __restrict__ vh, const __nv_bfloat16* __restrict__ doh,
-          const float* __restrict__ stat, const float* __restrict__ band,
-          const float* __restrict__ kinfo, float* __restrict__ dk, float* __restrict__ dv, int H,
-          int T, int Tp, int window, uint32_t thresh, float inv_keep) {
+kv_pass(unsigned char* raw, const __nv_bfloat16* __restrict__ qh,
+        const __nv_bfloat16* __restrict__ kh, const __nv_bfloat16* __restrict__ vh,
+        const __nv_bfloat16* __restrict__ doh, const float* __restrict__ stat,
+        const float* __restrict__ band, const float* __restrict__ kinfo, float* __restrict__ dk,
+        float* __restrict__ dv, int H, int T, int Tp, int window, uint32_t thresh,
+        float inv_keep) {
   constexpr int TILE = KVSmem<D>::TILE, NA = D / 2;
   KVSmem<D>& sm = *reinterpret_cast<KVSmem<D>*>(raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
@@ -1230,7 +1233,7 @@ extern "C" int rel_attn_train_bwd_q(const float* q, const float* k, const float*
   const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = d == 96 ? sizeof(BwdQSmem<96>) : sizeof(BwdQSmem<64>);
-  auto kernel = d == 96 ? bwd_q_kernel<96, false> : bwd_q_kernel<64, false>;
+  auto kernel = d == 96 ? bwd_q_kernel<96> : bwd_q_kernel<64>;
   const int err = prepare(kernel, smem);
   if (err) return err;
   kernel<<<grid, NWARP * 32, smem, s>>>(q, k, v, rel_k, rel_v, mask, o, lse, dout, dq, rowd, qrel,
@@ -1250,7 +1253,7 @@ extern "C" int rel_attn_train_bwd_kv(const float* q, const float* k, const float
   const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = d == 96 ? sizeof(BwdKVSmem<96>) : sizeof(BwdKVSmem<64>);
-  auto kernel = d == 96 ? bwd_kv_kernel<96, false> : bwd_kv_kernel<64, false>;
+  auto kernel = d == 96 ? bwd_kv_kernel<96> : bwd_kv_kernel<64>;
   const int err = prepare(kernel, smem);
   if (err) return err;
   kernel<<<grid, NWARP * 32, smem, s>>>(q, k, v, mask, lse, dout, rowd, qrel, dorel, dk, dv, H,
