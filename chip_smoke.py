@@ -605,13 +605,12 @@ F_BWD_T = (1024, 640, 128)         # phase 2b's T, a frame bucket, a phoneme len
 F_RATE = 0.1
 
 
-def f_bwd_breakdown(torch, dev, T: int, reps: int = 5) -> dict:
-    """Kernel F's bf16 backward at ``F_BWD_SHAPE`` and T, rate 0.1, bf16
-    operands, keys padded by 0, 37 and 74 in turn: its time per call and the
-    device time per call of each op it launches (the backward's kernels and
-    the wrapper's own casts, sums and allocations), through ``_launch_fwd``
-    and ``_launch_bwd``, which every version of the wrapper has: a copy of
-    this file in another checkout measures that one (--f-bwd)."""
+def f_bwd_inputs(torch, dev, T: int) -> tuple:
+    """Kernel F's backward's inputs at ``F_BWD_SHAPE`` and T, as the
+    attention layer of the training step hands them over: q, k, v and dO
+    bf16 [B, T, H, d] projections seen as [B, H, T, d], bf16 rel tables,
+    keys padded by 0, 37 and 74 in turn; out and lse from the kernel's
+    forward at rate 0.1.  → (dout, q, k, v, rel_k, rel_v, key_mask, out, lse)."""
     from vispeech_tpu_torch.ops.kernels import rel_attention_train as F_
 
     B, H, d = F_BWD_SHAPE
@@ -622,11 +621,43 @@ def f_bwd_breakdown(torch, dev, T: int, reps: int = 5) -> dict:
 
     lengths = torch.tensor([T - 37 * (i % 3) for i in range(B)], device=dev)
     key_mask = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
-    q, k, v, dout = (rn(B, H, T, d).bfloat16() for _ in range(4))
+    q, k, v, dout = (rn(B, T, H, d).bfloat16().transpose(1, 2) for _ in range(4))
     rel_k, rel_v = (rn(1, 9, d, scale=d ** -0.5).bfloat16() for _ in range(2))
     out, lse = F_._launch_fwd(q, k, v, rel_k, rel_v, key_mask, 99, F_RATE, 4, True)
-    return _by_op(torch, lambda: F_._launch_bwd(dout, q, k, v, rel_k, rel_v, key_mask, out, lse,
-                                                99, F_RATE, 4, True), reps)
+    return dout, q, k, v, rel_k, rel_v, key_mask, out, lse
+
+
+def f_bwd_breakdown(torch, dev, T: int, reps: int = 5) -> dict:
+    """Kernel F's bf16 backward on ``f_bwd_inputs(T)``: its time per call and
+    the device time per call of each op it launches (the backward's kernels
+    and the wrapper's own casts, sums and allocations), through
+    ``_launch_fwd`` and ``_launch_bwd``, which every version of the wrapper
+    has: a copy of this file in another checkout measures that one
+    (--f-bwd)."""
+    from vispeech_tpu_torch.ops.kernels import rel_attention_train as F_
+
+    x = f_bwd_inputs(torch, dev, T)
+    return _by_op(torch, lambda: F_._launch_bwd(*x, 99, F_RATE, 4, True), reps)
+
+
+def check_f_bwd(torch, dev, T: int) -> dict:
+    """Phase 2b: kernel F's bf16 backward at the training step's operands and
+    T (``f_bwd_breakdown``), its gradients held to the plain version's on f32
+    copies of the same inputs (``_held``'s 2^-7 of each peak), and its device
+    time by op.  → the breakdown with ``max_abs_err``."""
+    from vispeech_tpu_torch.ops.kernels import rel_attention_train as F_
+
+    r = f_bwd_breakdown(torch, dev, T)
+    grads = r.pop("grads")
+    dout, q, k, v, rel_k, rel_v, key_mask = (t.float() for t in f_bwd_inputs(torch, dev, T)[:7])
+    _, lse = F_.relative_self_attention_train_plain_fwd(q, k, v, rel_k, rel_v, key_mask, 99,
+                                                        F_RATE, 4, True)
+    refs = F_.relative_self_attention_train_plain_bwd(dout, q, k, v, rel_k, rel_v, key_mask, lse,
+                                                      99, F_RATE, 4, True)
+    print(f"kernel F bf16 backward on the training step's operands, T={T}:")
+    r["max_abs_err"] = _held(("bwd", ("dq", "dk", "dv", "drel_k", "drel_v")), grads, refs, True)
+    print_f_bwd(T, r)
+    return r
 
 
 def print_f_bwd(T: int, r: dict) -> None:
@@ -712,7 +743,7 @@ def check_train_kernels(torch, dev):
         grads = F_._launch_bwd(dout, *args, out, lse, 99, rate, 4, bf16)
         refs = F_.relative_self_attention_train_plain_bwd(dout, *args, lse_ref, 99, rate, 4,
                                                           bf16)
-        err_b = _held(("bwd", ("dq", "dk", "dv", "drel_k", "drel_v")), grads, refs, bf16)
+        _held(("bwd", ("dq", "dk", "dv", "drel_k", "drel_v")), grads, refs, bf16)
         if not bf16:
             continue
         ms = time_ms(lambda: F_._launch_fwd(*args, 99, rate, 4, bf16), 5)
@@ -721,21 +752,24 @@ def check_train_kernels(torch, dev):
         b_ms, b_by = bound(nbytes(*args, out, lse), 4.0 * B * H * T * T * d, dt)
         rows["rel_attention_train_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain,
                                                bound_ms=b_ms, bound_by=b_by)
-        ms = time_ms(lambda: F_._launch_bwd(dout, *args, out, lse, 99, rate, 4, bf16), 5)
-        plain = time_ms(lambda: F_.relative_self_attention_train_plain_bwd(
-            dout, *args, lse_ref, 99, rate, 4, bf16), 5)
-        # five T×T products: scores, dO·vᵀ, dv, dq, dk
-        b_ms, b_by = bound(nbytes(*args, out, lse, dout, *grads), 10.0 * B * H * T * T * d, dt)
-        rows["rel_attention_train_bwd"] = dict(max_abs_err=err_b, ms=ms, plain_ms=plain,
-                                               bound_ms=b_ms, bound_by=b_by)
-        for key in ("rel_attention_train_fwd", "rel_attention_train_bwd"):
-            r = rows[key]
-            print(f"  {key} T={T} {dt} rate {rate}: {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        # the backward's device time by sub-kernel, beside its total
-        breakdown = f_bwd_breakdown(torch, dev, T)
-        breakdown.pop("grads")
-        print_f_bwd(T, breakdown)
+    # the bf16 backward on the operands the training step hands it (bf16
+    # strided views), at T = 1024 and the main path's frame bucket and
+    # phoneme length, each held to the plain version and timed by sub-kernel
+    checked = {T_: check_f_bwd(torch, dev, T_) for T_ in F_BWD_T}
+    x = f_bwd_inputs(torch, dev, T)
+    f = [t.float() for t in x]
+    plain = time_ms(lambda: F_.relative_self_attention_train_plain_bwd(
+        *f[:7], f[8], 99, F_RATE, 4, True), 5)
+    # five T×T products: scores, dO·vᵀ, dv, dq, dk; out: dq, dk, dv and the rel tables' grads
+    moved = nbytes(*x) + 3 * B * H * T * d * 4 + 2 * 9 * d * 4
+    b_ms, b_by = bound(moved, 10.0 * B * H * T * T * d, "bfloat16")
+    rows["rel_attention_train_bwd"] = dict(max_abs_err=checked[T]["max_abs_err"],
+                                           ms=checked[T]["ms"], plain_ms=plain, bound_ms=b_ms,
+                                           bound_by=b_by)
+    for key in ("rel_attention_train_fwd", "rel_attention_train_bwd"):
+        r = rows[key]
+        print(f"  {key} T={T} bfloat16 rate 0.1: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
 

@@ -87,7 +87,7 @@ def test_constants_and_grid_are_the_kernels():
     assert F.BAND_ROW == 2 * F._MAXW
     assert int(_const(src, "BQ")) == 32   # the forward's and the f32 backward's tile
     assert "const dim3 grid(Tp / BT, B * H);" in src
-    assert "prep_kernel<D, IN><<<grid, NT, 0, s>>>" in src
+    assert "prep_kernel<D><<<grid, NT, 0, s>>>" in src
     assert "qkv<<<dim3(grid.x, grid.y, 2), NT, QKV_SMEM<D>, s>>>" in src
     assert "if (blockIdx.z == 0)\n    q_pass<D, DROP>" in src
     for B, H, T in ((1, 2, 1), (12, 2, 128), (12, 2, 640), (12, 2, 1024), (2, 2, 131)):
@@ -128,7 +128,8 @@ def test_prep_holds_the_rows_definitions(n_rel):
     assert torch.equal(qs[:, :, :T], (q * (1.0 / math.sqrt(d))).bfloat16().float())
     stat = prep["stat"].transpose(2, 3).reshape(B, H, Tp, 3)
     assert torch.equal(stat[:, :, :T, 0], lse) and torch.isinf(stat[:, :, T:, 0]).all()
-    torch.testing.assert_close(stat[:, :, :T, 1], (dout * out).sum(-1), rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(stat[:, :, :T, 1], (dout.bfloat16().float() * out).sum(-1),
+                               rtol=1e-6, atol=1e-5)
     rk = F._f32_to_bits(stat[..., 2])
     col = F._mul32(torch.arange(T, dtype=torch.int64) + 1, F._K_COL)
     keep = F._fmix32(rk[:, :, :T, None] ^ col) >= F.keep_threshold(0.1)
@@ -156,17 +157,42 @@ def test_partials_sum_in_a_fixed_order(n_rel):
 
 
 def test_operands_keep_aligned_strided_views():
-    """The kernels read q, k, v and dO through their strides: the model's
-    [B, T, H, d] projections seen as [B, H, T, d] go in without a copy; a
-    view whose rows do not start 16-byte aligned, or whose d is strided, is
-    copied."""
+    """The kernels read bf16 q, k, v and dO through their strides: the
+    model's [B, T, H, d] projections seen as [B, H, T, d] go in without a
+    copy; an f32 operand is rounded to bf16; a view whose rows do not start
+    16-byte aligned, or whose d is strided, is copied."""
     x = torch.randn(2, 50, 2, D_HEAD).bfloat16()
     view = x.transpose(1, 2)
-    assert F._operand(view, True).data_ptr() == view.data_ptr()
-    assert F._operand(view, False).dtype == torch.float32
+    assert F._operand(view).data_ptr() == view.data_ptr()
+    f32 = view.float()
+    assert torch.equal(F._operand(f32), view) and F._operand(f32).dtype == torch.bfloat16
     odd = torch.randn(2 * 50 * 2 * D_HEAD + 1).bfloat16()[1:].view(2, 2, 50, D_HEAD)
-    got = F._operand(odd, True)
+    got = F._operand(odd)
     assert got.data_ptr() % 16 == 0 and torch.equal(got, odd)
     strided = torch.randn(2, 2, 50, 2 * D_HEAD).bfloat16()[..., ::2]
-    got = F._operand(strided, True)
+    got = F._operand(strided)
     assert got.stride(-1) == 1 and torch.equal(got, strided)
+
+
+def test_bwd_entry_holds_the_tile_once_per_library(monkeypatch):
+    """``_bwd_bf16_entry`` asks the library for its tile on the first call
+    after a library is bound (the ablation tool binds a new one per variant),
+    not on every backward, and refuses a library whose tile is not
+    ``BWD_TILE``."""
+    asked, tile, bound = [], [F.BWD_TILE], [object()]
+
+    def function(name, symbol, argtypes):
+        if symbol == "rel_attn_train_bwd_tile":
+            return lambda: asked.append(symbol) or tile[0]
+        return bound[0]
+
+    monkeypatch.setattr(F._build, "function", function)
+    monkeypatch.setattr(F, "_tile_held", None)
+    first = bound[0]
+    assert F._bwd_bf16_entry() is first and F._bwd_bf16_entry() is first
+    assert len(asked) == 1
+    bound[0] = object()
+    assert F._bwd_bf16_entry() is bound[0] and len(asked) == 2
+    bound[0], tile[0] = object(), 32
+    with pytest.raises(RuntimeError, match="BWD_TILE"):
+        F._bwd_bf16_entry()

@@ -511,8 +511,8 @@ int prepare(F kernel, size_t smem) {
 //          wgmma are contiguous, for K-major and MN-major reads alike, and a
 //          tile is one bulk copy); per row lse (+inf past T), D = rowsum(dO ∘
 //          O) and the row's hash key; per row q̂·rel_k and dO·rel_v; per key
-//          1 (kept), 0 (masked) or −1 (past T).  It reads q, k, v and dO in
-//          their own type (f32 or bf16) through their strides.
+//          1 (kept), 0 (masked) or −1 (past T).  It reads q, k, v and dO as
+//          bf16, the type the model hands over, through their strides.
 //   q      a warpgroup owns 64 query rows and walks the key tiles, streamed by
 //          bulk copies into two buffers: S = q̂·Kᵀ and dPd = dO·Vᵀ (m64n64k16,
 //          both operands K-major), p, the keep hash, pd and ds in registers,
@@ -672,8 +672,9 @@ __device__ __forceinline__ void unpack8(float (&x)[8], uint4 u) {
     x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
 }
-__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
-  unpack8(x, __ldg(reinterpret_cast<const uint4*>(p)));
+// 8 bf16 (16 bytes) of a row
+__device__ __forceinline__ uint4 ldg8(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 // the dropout factor of (row key, key column): 0 or 1/(1 − rate); 1 without dropout
@@ -683,8 +684,8 @@ __device__ __forceinline__ float keep_f(uint32_t rk, uint32_t jk, uint32_t thres
   return fmix32(rk ^ jk) >= thresh ? inv : 0.f;
 }
 
-// one [B, H, T, d] operand of the call: its pointer and element strides of
-// b, h and t (d's is 1)
+// one bf16 [B, H, T, d] operand of the call: its pointer and element strides
+// of b, h and t (d's is 1)
 struct Src {
   const void* p;
   long long sb, sh, st;
@@ -693,17 +694,17 @@ struct Srcs {
   Src q, k, v, dout;
 };
 
-template <typename IN>
-__device__ __forceinline__ const IN* row_of(const Src& s, int b, int h, int t) {
-  return static_cast<const IN*>(s.p) + b * s.sb + h * s.sh + t * s.st;
+__device__ __forceinline__ const __nv_bfloat16* row_of(const Src& s, int b, int h, int t) {
+  return static_cast<const __nv_bfloat16*>(s.p) + b * s.sb + h * s.sh + t * s.st;
 }
 
 // prep: one block per (64-row tile, batch·head).  Writes the tile's rows of
 // qh, kh, vh, doh ([B·H][Tp/64][d/8][64][8] bf16, zero past T), its part of
 // stat ([B·H][Tp/64][3][64]: lse or +inf past T, D, the row's hash key as
 // bits), of band ([B·H][Tp][2·MAXW]: q̂·rel_k[w], dO·rel_v[w], zero for
-// w ≥ 2w+1) and, for h = 0, of kinfo ([B][Tp]).
-template <int D, typename IN>
+// w ≥ 2w+1) and, for h = 0, of kinfo ([B][Tp]).  q̂ = bf16(q·q_scale):
+// q_scale is 1/√d, or 1 where the caller hands over q̂ itself.
+template <int D>
 __global__ void __launch_bounds__(NT)
 prep_kernel(Srcs src, const float* __restrict__ o, const float* __restrict__ lse,
             const float* __restrict__ mask, const float* __restrict__ rel_k,
@@ -711,7 +712,7 @@ prep_kernel(Srcs src, const float* __restrict__ o, const float* __restrict__ lse
             __nv_bfloat16* __restrict__ kh, __nv_bfloat16* __restrict__ vh,
             __nv_bfloat16* __restrict__ doh, float* __restrict__ stat, float* __restrict__ band,
             float* __restrict__ kinfo, int H, int T, int Tp, int n_rel, int window,
-            uint32_t seed, float scale) {
+            uint32_t seed, float q_scale) {
   constexpr int NC = D / 8, TILE = NC * BT * 8, RS = D + 4;
   __shared__ __align__(16) __nv_bfloat16 qs[TILE], ds[TILE];
   __shared__ __align__(16) float rks[MAXW * RS], rvs[MAXW * RS];   // rows padded: the band
@@ -727,15 +728,15 @@ prep_kernel(Srcs src, const float* __restrict__ o, const float* __restrict__ lse
     float part = 0.f;
     if (t < T) {
       float x[8], y[8];
-      load8(x, row_of<IN>(src.q, b, h, t) + 8 * c);
-      pq = make_uint4(pack2(x[0] * scale, x[1] * scale), pack2(x[2] * scale, x[3] * scale),
-                      pack2(x[4] * scale, x[5] * scale), pack2(x[6] * scale, x[7] * scale));
-      load8(x, row_of<IN>(src.k, b, h, t) + 8 * c);
-      pk = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
-      load8(x, row_of<IN>(src.v, b, h, t) + 8 * c);
-      pv = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
-      load8(x, row_of<IN>(src.dout, b, h, t) + 8 * c);
-      pd = make_uint4(pack2(x[0], x[1]), pack2(x[2], x[3]), pack2(x[4], x[5]), pack2(x[6], x[7]));
+      unpack8(x, ldg8(row_of(src.q, b, h, t) + 8 * c));
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[e] = pack2(x[2 * e] * q_scale, x[2 * e + 1] * q_scale);
+      pq = make_uint4(w[0], w[1], w[2], w[3]);
+      pk = ldg8(row_of(src.k, b, h, t) + 8 * c);
+      pv = ldg8(row_of(src.v, b, h, t) + 8 * c);
+      pd = ldg8(row_of(src.dout, b, h, t) + 8 * c);
+      unpack8(x, pd);
       load8(y, o + ((size_t)bh * T + t) * D + 8 * c);
 #pragma unroll
       for (int e = 0; e < 8; ++e) part += x[e] * y[e];
@@ -1173,20 +1174,20 @@ template <int D>
 constexpr size_t QKV_SMEM = sizeof(QSmem<D>) > sizeof(KVSmem<D>) ? sizeof(QSmem<D>)
                                                                   : sizeof(KVSmem<D>);
 
-template <int D, typename IN>
+template <int D>
 int backward(const Srcs& src, const float* o, const float* lse, const float* mask,
              const float* rel_k, const float* rel_v, __nv_bfloat16* qh, __nv_bfloat16* kh,
              __nv_bfloat16* vh, __nv_bfloat16* doh, float* stat, float* band, float* kinfo,
              float* dq, float* dk, float* dv, float* part_k, float* part_v, int B, int H, int T,
              int n_rel, int window, uint32_t seed, uint32_t thresh, float inv, float scale,
-             cudaStream_t s) {
+             float q_scale, cudaStream_t s) {
   const int Tp = (T + BT - 1) / BT * BT;
   const dim3 grid(Tp / BT, B * H);
   auto qkv = thresh ? qkv_kernel<D, true> : qkv_kernel<D, false>;
   const int err = prepare(qkv, QKV_SMEM<D>);
   if (err) return err;
-  prep_kernel<D, IN><<<grid, NT, 0, s>>>(src, o, lse, mask, rel_k, rel_v, qh, kh, vh, doh, stat,
-                                         band, kinfo, H, T, Tp, n_rel, window, seed, scale);
+  prep_kernel<D><<<grid, NT, 0, s>>>(src, o, lse, mask, rel_k, rel_v, qh, kh, vh, doh, stat, band,
+                                     kinfo, H, T, Tp, n_rel, window, seed, q_scale);
   qkv<<<dim3(grid.x, grid.y, 2), NT, QKV_SMEM<D>, s>>>(qh, kh, vh, doh, stat, band, kinfo, rel_k,
                                                        dq, dk, dv, part_k, part_v, H, T, Tp,
                                                        n_rel, window, thresh, inv, scale);
@@ -1262,9 +1263,9 @@ extern "C" int rel_attn_train_bwd_kv(const float* q, const float* k, const float
 }
 
 // The bf16 backward on wgmma: prep, q and kv (namespace bwd16) in one call.
-//   q, k, v, dout: [B, H, T, d], f32 or (in_bf16) bf16, any strides whose
-//     rows start 16-byte aligned: strides[4·i .. 4·i + 2] are operand i's
-//     element strides of b, h and t (d's is 1; host memory).
+//   q, k, v, dout: [B, H, T, d], bf16, any strides whose rows start 16-byte
+//     aligned: strides[4·i .. 4·i + 2] are operand i's element strides of b,
+//     h and t (d's is 1; host memory).  q_scaled: q is already q̂ = q/√d.
 //   o [B, H, T, d], lse [B, H, T], mask [B, T], rel_k, rel_v [n_rel, 2w+1, d]: f32.
 //   qh, kh, vh, doh: bf16 [B·H, Tp·d], stat [B·H, Tp/64, 3, 64], band [B·H, Tp, 18],
 //     kinfo [B, Tp]: scratch, every element written, Tp = ceil(T/64)·64.
@@ -1278,7 +1279,7 @@ extern "C" int rel_attn_train_bwd_bf16(const void* q, const void* k, const void*
                                        void* vh, void* doh, float* stat, float* band,
                                        float* kinfo, float* dq, float* dk, float* dv,
                                        float* part_k, float* part_v, int B, int H, int T, int d,
-                                       int n_rel, int window, int in_bf16, uint32_t seed,
+                                       int n_rel, int window, int q_scaled, uint32_t seed,
                                        uint32_t thresh, float rate, void* stream) {
   using bf = __nv_bfloat16;
   if (window > 4 || (d != 64 && d != 96)) return (int)cudaErrorInvalidValue;
@@ -1288,10 +1289,9 @@ extern "C" int rel_attn_train_bwd_bf16(const void* q, const void* k, const void*
     s4[i] = bwd16::Src{ptrs[i], strides[4 * i], strides[4 * i + 1], strides[4 * i + 2]};
   const bwd16::Srcs src{s4[0], s4[1], s4[2], s4[3]};
   const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
-  auto run = d == 96 ? (in_bf16 ? bwd16::backward<96, bf> : bwd16::backward<96, float>)
-                     : (in_bf16 ? bwd16::backward<64, bf> : bwd16::backward<64, float>);
+  auto run = d == 96 ? bwd16::backward<96> : bwd16::backward<64>;
   return run(src, o, lse, mask, rel_k, rel_v, static_cast<bf*>(qh), static_cast<bf*>(kh),
              static_cast<bf*>(vh), static_cast<bf*>(doh), stat, band, kinfo, dq, dk, dv, part_k,
-             part_v, B, H, T, n_rel, window, seed, thresh, inv, scale,
+             part_v, B, H, T, n_rel, window, seed, thresh, inv, scale, q_scaled ? 1.f : scale,
              static_cast<cudaStream_t>(stream));
 }

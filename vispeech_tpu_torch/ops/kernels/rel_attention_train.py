@@ -8,12 +8,15 @@ relative_self_attention_train`` (custom VJP; bodies ``_fwd_kernel`` and
 * forward: kernel A's online softmax, plus the per-row logsumexp and the
   dropout keep mask on the probabilities;
 * backward with bf16 operands (``bf16_compute``): one library call of two
-  launches on wgmma bf16.  A prep kernel makes bf16 copies of q̂ = bf16(q·
-  scale), k, v and dO once a call, in 64-row tiles of wgmma core matrices
-  (``to_bwd_tiles``), with each row's lse, D = rowsum(dO ∘ O), hash key and
-  band terms; then the q pass (64 query rows a warpgroup: dq and the
-  banded drel_k / drel_v partial sums per tile) and the kv pass (64 keys a
-  warpgroup, the transposed products: dk, dv) run in one launch.
+  launches on wgmma bf16.  It reads q, k, v and dO as bf16, the model's
+  type (``_operand`` rounds an f32 one; an f32 q goes in as q̂, rounded
+  once as the plain version rounds it).  A prep kernel makes bf16
+  copies of q̂ = bf16(q·scale), k, v and dO once a call, in 64-row tiles of
+  wgmma core matrices (``to_bwd_tiles``), with each row's lse, D =
+  rowsum(dO ∘ O), hash key and band terms; then the q pass (64 query rows
+  a warpgroup: dq and the banded drel_k / drel_v partial sums per tile)
+  and the kv pass (64 keys a warpgroup, the transposed products: dk, dv)
+  run in one launch.
   ``relative_self_attention_train_tiled_bwd`` is its data flow in plain
   PyTorch, which the CPU tests hold to the plain backward;
 * backward in f32: one pass per 32 query rows, then one per 32 keys, on
@@ -245,7 +248,7 @@ def bwd_prep(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed: int, window:
     stat = torch.zeros(BH, Tp, 3)
     stat[:, :, 0] = math.inf
     stat[:, :T, 0] = lse.float().reshape(BH, T)
-    stat[:, :T, 1] = (flat(dout) * flat(out)).sum(-1)
+    stat[:, :T, 1] = (_r(flat(dout), True) * flat(out)).sum(-1)     # dO as the kernels read it
     a = _fmix32((seed & _MASK32) ^ _mul32(torch.arange(BH, dtype=torch.int64) + 1, _K_BH))
     rows = _fmix32(a[:, None] ^ _mul32(torch.arange(Tp, dtype=torch.int64) + 1, _K_ROW)[None])
     stat[:, :, 2] = _bits_to_f32(rows)
@@ -373,12 +376,12 @@ def _f32(t):
     return t.detach().float().contiguous()
 
 
-def _operand(t, bf16_in: bool):
-    """q, k, v or dO as the bf16 backward reads it: bf16 (``bf16_in``) or
-    f32, any strides whose rows start 16-byte aligned along a unit-stride d."""
-    t = t.detach().to(torch.bfloat16 if bf16_in else torch.float32)
-    size = t.element_size()
-    if t.stride(-1) != 1 or any(s * size % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+def _operand(t):
+    """q, k, v or dO as the bf16 backward reads it: bf16 (an f32 operand is
+    rounded here), any strides whose rows start 16-byte aligned along a
+    unit-stride d."""
+    t = t.detach().to(torch.bfloat16)
+    if t.stride(-1) != 1 or any(s * 2 % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
         t = t.contiguous()
         if t.data_ptr() % 16:
             t = t.clone()
@@ -436,17 +439,31 @@ def _launch_bwd_f32(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate,
 
 _BF16_ARGS = ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
               + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+_tile_held = None   # the bf16 entry whose library's tile was held to BWD_TILE
+
+
+def _bwd_bf16_entry():
+    """The bf16 backward's entry; the first call on a newly bound library
+    holds its tile to ``BWD_TILE``."""
+    global _tile_held
+    fn = _build.function("rel_attention_train", "rel_attn_train_bwd_bf16", _BF16_ARGS)
+    if fn is not _tile_held:
+        if _build.function("rel_attention_train", "rel_attn_train_bwd_tile", [])() != BWD_TILE:
+            raise RuntimeError("csrc/rel_attention_train.cu's bf16 backward tile is not BWD_TILE")
+        _tile_held = fn
+    return fn
 
 
 def _launch_bwd_bf16(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate, window):
     B, H, T, d = q.shape
     BH, n_rel, W = B * H, rel_k.shape[0], 2 * window + 1
-    if _build.function("rel_attention_train", "rel_attn_train_bwd_tile", [])() != BWD_TILE:
-        raise RuntimeError("csrc/rel_attention_train.cu's bf16 backward tile is not BWD_TILE")
-    fn = _build.function("rel_attention_train", "rel_attn_train_bwd_bf16", _BF16_ARGS)
+    fn = _bwd_bf16_entry()
     Tp, nt = bwd_rows(T)
-    bf16_in = all(t.dtype == torch.bfloat16 for t in (q, k, v, dout))
-    ops = [_operand(t, bf16_in) for t in (q, k, v, dout)]
+    # an f32 q goes in as q̂ = bf16(q·scale), rounded once as the plain version rounds it
+    q_scaled = q.dtype != torch.bfloat16
+    if q_scaled:
+        q = q.detach().float() * (1.0 / math.sqrt(d))
+    ops = [_operand(t) for t in (q, k, v, dout)]
     strides = (ctypes.c_longlong * 16)(*(x for t in ops for x in (*t.stride()[:3], 0)))
     rest = [_f32(t) for t in (out, lse, key_mask, rel_k, rel_v)]
     dev = q.device
@@ -459,7 +476,7 @@ def _launch_bwd_bf16(dout, q, k, v, rel_k, rel_v, key_mask, out, lse, seed, rate
                 *(t.data_ptr() for t in rest), *(c.data_ptr() for c in copies),
                 stat.data_ptr(), band.data_ptr(), kinfo.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), parts.data_ptr(), parts[BH * nt * W * d:].data_ptr(),
-                B, H, T, d, n_rel, window, int(bf16_in), seed & 0xFFFFFFFF,
+                B, H, T, d, n_rel, window, int(q_scaled), seed & 0xFFFFFFFF,
                 keep_threshold(rate), rate, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "rel_attention_train bf16 backward")
     shape = (B, H, T, d)
