@@ -28,7 +28,12 @@ and check them.
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
    f32 and with bf16 operands; E's bf16 backward at L = 16 and F's at
    T = 1024 also with their device time by sub-kernel (torch.profiler)
-   beside their totals.
+   beside their totals.  E's bf16 forward and F's bf16 backward also on
+   the operands the training step hands them (E: bf16 x and mask, the
+   weights ``WN.packed`` builds from bf16-cast parameters and cond, f32, at
+   L = 16 and T = 1024, 896 and 640; F: bf16 strided views at T = 1024,
+   640 and 128), each output held to the plain version on f32 copies
+   (out and every layer's xs for E), with their device time by op.
 3. Builds the engine at the full width of ``configs/config.json`` with
    weights drawn from a seed, resets the launch counters and serves three
    ``synthesize`` requests (one with explicit durations in the 1400-frame
@@ -63,6 +68,19 @@ and check them.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
 package is not beside this file, or when any phase fails.
+
+    python3 chip_smoke.py --e-fwd
+
+prints E's bf16 forward at B = 12, T = 1024, L = 16 on the training step's
+operands: its time a call, its host dispatch and its device time by op
+(the layer kernels, the wrapper's own copies and weight preparation), as
+one JSON line last, for the checkout this file sits in.
+
+    python3 chip_smoke.py --train
+
+runs phase 4 alone and prints its step times, the profiled step's wall
+and device busy time and the kernels' device time in it, as one JSON line
+last, for the checkout this file sits in.
 
     python3 chip_smoke.py --e-bwd
 
@@ -535,6 +553,70 @@ def _op_name(key: str) -> str:
 
 
 E_BWD_SHAPE = (12, 1024, 16, 5)   # B, T, L, k: enc_q, the main path's largest E call
+E_FWD_T = (1024, 896, 640)        # phase 2b's T for E's forward: 1024 and two frame buckets
+
+
+def e_step_operands(torch, dev, T: int) -> tuple:
+    """Kernel E's forward's operands at ``E_BWD_SHAPE``'s B, L, k and T, as
+    the training step hands them over in ``enc_q`` (bf16 ``tail_f32``): a WN
+    of C = 192 with a 256-channel speaker, its parameters drawn from a seed
+    and cast to bf16; bf16 x and length mask (lengths T − 37·(b % 3)); and
+    ``WN.packed``'s cond, w_in (a permuted view), w_rs and b_rs, all f32 (the
+    weight norm computes in f32 from the bf16 parameters).
+    → (x, mask, cond, w_in, w_rs, b_rs)."""
+    from vispeech_tpu_torch.models.synthesizer import random_init_
+    from vispeech_tpu_torch.ops.wavenet import WN
+
+    B, _, L, K = E_BWD_SHAPE
+    wn = random_init_(WN(192, K, 1, L, gin_channels=256), SEED + 7).to(dev, torch.bfloat16)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    x = torch.randn(B, T, 192, generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn(B, 1, 256, generator=gen).to(dev, torch.bfloat16)
+    lengths = torch.tensor([T - 37 * (i % 3) for i in range(B)], device=dev)
+    mask = (torch.arange(T, device=dev)[None, :, None] < lengths[:, None, None]).bfloat16()
+    with torch.no_grad():
+        return (x, mask, *wn.packed(B, g))
+
+
+def e_fwd_breakdown(torch, dev, reps: int = 5, T: int = E_BWD_SHAPE[1]) -> dict:
+    """Kernel E's bf16 forward on ``e_step_operands`` at T: its time per
+    call, host dispatch and device time per call by op, through
+    ``_launch_fwd``, which every version of the wrapper has: a copy of this
+    file in another checkout measures that one (--e-fwd).  "grads" holds
+    (out, xs)."""
+    from vispeech_tpu_torch.ops.kernels import wn_stack_train as E_
+
+    ops = e_step_operands(torch, dev, T)
+    return _by_op(torch, lambda: E_._launch_fwd(*ops, E_BWD_SHAPE[3], True), reps)
+
+
+def check_e_fwd(torch, dev, T: int) -> dict:
+    """Phase 2b: kernel E's bf16 forward on the training step's operands at
+    T (``e_step_operands``), out and every layer's xs held to the plain
+    version on f32 copies of the same operands (``_held``'s 2^-7 of each
+    peak), and its time by op.  → {"max_abs_err", "ms", "device_ms", ...}."""
+    from vispeech_tpu_torch.ops.kernels import wn_stack_train as E_
+
+    _, _, L, K = E_BWD_SHAPE
+    ops = e_step_operands(torch, dev, T)
+    r = _by_op(torch, lambda: E_._launch_fwd(*ops, K, True), 5)
+    out, xs = r.pop("grads")
+    ref, xs_ref = E_.wn_stack_train_plain_fwd(*(t.float() for t in ops), K, True)
+    print(f"kernel E bf16 forward on the training step's operands, T={T}, L={L}:")
+    labels = ("out",) + tuple(f"xs[:, {l}]" for l in range(L))
+    r["max_abs_err"] = _held(("fwd", labels), (out, *xs.unbind(1)), (ref, *xs_ref.unbind(1)),
+                             True)
+    print_e_fwd(T, r)
+    return r
+
+
+def print_e_fwd(T: int, r: dict) -> None:
+    B, _, L, K = E_BWD_SHAPE
+    print(f"  wn_stack_train_fwd B={B} T={T} L={L} k={K} bf16: {r['ms']:.4f} ms a call "
+          f"({r['host_ms']:.4f} ms of host dispatch), {r['device_ms']:.4f} ms of device time "
+          f"by the profiler:")
+    for name, (ms, n) in r["ops"].items():
+        print(f"    {ms:9.4f} ms  x{n:<4d} {name}")
 
 
 def e_bwd_breakdown(torch, dev, reps: int = 5) -> dict:
@@ -700,18 +782,23 @@ def check_train_kernels(torch, dev):
             print(f"kernel E wn_stack_train B={B} T={T} L={L} ({label}) {dt}:")
             out, xs = E_._launch_fwd(*args, K, bf16)
             ref, xs_ref = E_.wn_stack_train_plain_fwd(*args, K, bf16)
-            err_f = _held(("fwd", ("out", "xs")), (out, xs), (ref, xs_ref), bf16)
+            _held(("fwd", ("out", "xs")), (out, xs), (ref, xs_ref), bf16)
             grads = E_._launch_bwd(dout, xs, *args[1:5], K, bf16)
             refs = E_.wn_stack_train_plain_bwd(dout, xs_ref, *args[1:5], K, bf16)
             err_b = _held(("bwd", ("dx", "dcond", "dW_in", "dW_rs", "db_rs")), grads, refs, bf16)
             if L != 16 or not bf16:
                 continue
-            # the main path's largest call: enc_q, bf16 operands
-            per_layer = K * C * 2 * C + C * 2 * C
-            ms = time_ms(lambda: E_._launch_fwd(*args, K, bf16), 5)
-            plain = time_ms(lambda: E_.wn_stack_train_plain_fwd(*args, K, bf16), 5)
-            b_ms, b_by = bound(nbytes(*args, out, xs), 2.0 * B * T * L * per_layer, dt)
-            rows["wn_stack_train_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain,
+            # the main path's largest call: enc_q, bf16 operands; the forward
+            # on the step's own operands at T = 1024 and two frame buckets
+            checked = {T_: check_e_fwd(torch, dev, T_) for T_ in E_FWD_T}
+            ops = e_step_operands(torch, dev, T)
+            f32 = [t.float() for t in ops]
+            plain = time_ms(lambda: E_.wn_stack_train_plain_fwd(*f32, K, bf16), 5)
+            # every layer's gate and residual half, the skip half below the last
+            flops = 2.0 * B * T * (L * K * C * 2 * C + (2 * L - 1) * C * C)
+            b_ms, b_by = bound(nbytes(*ops, out, xs), flops, dt)
+            rows["wn_stack_train_fwd"] = dict(max_abs_err=checked[T]["max_abs_err"],
+                                              ms=checked[T]["ms"], plain_ms=plain,
                                               bound_ms=b_ms, bound_by=b_by)
             ms = time_ms(lambda: E_._launch_bwd(dout, xs, *args[1:5], K, bf16), 3)
             plain = time_ms(lambda: E_.wn_stack_train_plain_bwd(dout, xs_ref, *args[1:5], K,
@@ -892,17 +979,17 @@ def serve(torch, dev, cfg, state_dict):
 # kernels, and kernels E and F in training (forward; bf16 and f32 backward)
 KERNEL_FUNCS = {"rel_attention": ("rel_attention_",), "wn_stack": ("wn_stack_kernel",),
                 "mrf_stage": ("mrf_stage_kernel",), "mrf_stage_folded": ("mrf_folded_kernel",),
-                "wn_stack_train_fwd": ("fwd_layer<",),
+                "wn_stack_train_fwd": ("fwd_layer<", "wf::"),
                 "wn_stack_train_bwd": ("wg::",),
                 "rel_attention_train_fwd": ("fwd_kernel<",),
                 "rel_attention_train_bwd": ("bwd16::", "bwd_q_kernel<", "bwd_kv_kernel<")}
 
 
-def profile(torch, label, fn, top):
+def profile(torch, label, fn, top, record=None):
     """``fn()`` once under torch.profiler: the device's busy share of its
     wall time, the ``top`` device ops by time, and the summed device time of
     each kernel of ``KERNEL_FUNCS`` (phases 3, 3c, 3d and 4).  → {kernel:
-    (ms, count)}."""
+    (ms, count)}; ``record`` (a dict) also gets the wall and busy ms."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -921,6 +1008,8 @@ def profile(torch, label, fn, top):
         return {}
     print(f"profile {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops")
+    if record is not None:
+        record.update(wall_ms=wall_ms, busy_ms=busy_ms)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     totals = {}
@@ -930,6 +1019,13 @@ def profile(torch, label, fn, top):
                         sum(e.count for e in hits))
     print(f"  kernel device time over {label}: " + ", ".join(
         f"{k} {ms:.4f} ms x{n}" for k, (ms, n) in totals.items()))
+    # library work by kind: cuDNN's implicit-GEMM convs, the other GEMMs
+    groups = {"implicit-GEMM convs": lambda k: "implicit_gemm" in k,
+              "other GEMMs": lambda k: "gemm" in k.lower() and "implicit_gemm" not in k}
+    print(f"  by kind over {label}: " + ", ".join(
+        f"{name} {sum(e.self_device_time_total for e in events if hit(e.key)) / 1e3:.4f} ms "
+        f"x{sum(e.count for e in events if hit(e.key))}" for name, hit in groups.items())
+        + f", kernels A-F {sum(ms for ms, _ in totals.values()):.4f} ms of {busy_ms:.4f}")
     return totals
 
 
@@ -1045,11 +1141,13 @@ def _param_snapshot(model):
     return {n: p.detach().float().clone() for n, p in list(model.named_parameters())[::7]}
 
 
-def train_phase(torch, cfg, root):
+def train_phase(torch, cfg, root, record=None):
     """Phase 4: the Trainer at full width (batch 12, bf16 tail_f32): one
     warm-up step, 5 timed steps with the launch counters, a profiled step,
     the losses and parameter updates, a checkpoint and a resumed Trainer.
-    → the launch counts of the 5 timed steps."""
+    → the launch counts of the 5 timed steps; ``record`` (a dict) also gets
+    the step times, the profiled step's frames, wall and busy ms and the
+    kernels' device time in it."""
     import numpy as np
 
     from vispeech_tpu_torch.ops import kernels
@@ -1104,8 +1202,14 @@ def train_phase(torch, cfg, root):
 
     batch = next(batches)
     batches.close()
-    profile(torch, f"train step ({batch['wav'].shape[1] // d.hop_length} frames)",
-            lambda: trainer.step_fn(batch), 12)
+    prof = {}
+    frames = batch['wav'].shape[1] // d.hop_length
+    totals = profile(torch, f"train step ({frames} frames)", lambda: trainer.step_fn(batch), 12,
+                     prof)
+    if record is not None:
+        record.update(step_ms=[1e3 * t for t in times],
+                      median_step_ms=1e3 * sorted(times)[len(times) // 2],
+                      profiled_frames=frames, profiled=prof, kernels=totals)
     moved_g = any(not torch.equal(v, p) for v, p in zip(
         g0.values(), _param_snapshot(trainer.model_g).values()))
     moved_d = any(not torch.equal(v, p) for v, p in zip(
@@ -1235,6 +1339,24 @@ def main() -> int:
     if sys.argv[1:] == ["--kernel-times"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"root": ROOT, "card": card_line(), "ms": kernel_times(torch, dev)}))
+        return 0
+    if sys.argv[1:] == ["--e-fwd"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        r = e_fwd_breakdown(torch, dev)
+        r.pop("grads")
+        print_e_fwd(E_BWD_SHAPE[1], r)
+        print(json.dumps({"root": ROOT, "card": card_line(), **r}))
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        rec = {}
+        root = tempfile.mkdtemp(prefix="vispeech_train_")
+        try:
+            train_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), root,
+                        rec)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"root": ROOT, "card": card_line(), **rec}))
         return 0
     if sys.argv[1:] == ["--e-bwd"]:
         torch.backends.cuda.matmul.allow_tf32 = False

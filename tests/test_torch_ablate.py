@@ -4,7 +4,9 @@ edit (``vispeech_tpu_torch/tools/ablate_*.py``).
 Each variant is a list of (old, new) replacements applied to a copy of a
 ``csrc/*.cu`` file on the card; a replacement whose old text the source no
 longer has would fail there, after the build.  This holds them to the
-sources here, on the CPU.
+sources here, on the CPU.  Each old text occurs exactly once in its
+source: a text that a new kernel repeats would silently ablate that kernel
+too.
 """
 
 import importlib
@@ -27,6 +29,7 @@ def test_variants_match_their_source(tool):
     for name, subs in module.VARIANTS.items():
         text = src
         for old, new in subs:
+            assert src.count(old) == 1, f"{tool} variant '{name}': {old[:60]!r}"
             assert old in text, f"{tool} variant '{name}': {old[:60]!r}"
             text = text.replace(old, new)
         assert (text != src) == bool(subs), f"{tool} variant '{name}' changes nothing"

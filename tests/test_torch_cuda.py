@@ -410,6 +410,56 @@ def test_wn_stack_train_bf16_refuses_k7(device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L", [4, 16])
+@pytest.mark.parametrize("T", [77, 200, 640])
+def test_wn_stack_train_bf16_forward(device, T, L):
+    """The bf16 forward on wgmma against its plain version, out and every
+    layer's xs, with padded masks, at T not a multiple of its 128-row
+    blocks and at a frame bucket; two runs give the same bits."""
+    K = 5
+    args, _ = _wn_train_inputs(device, 3, T, L)
+    out, xs = wn_stack_train._launch_fwd(*args, K, True)
+    torch.cuda.synchronize()
+    ref, xs_ref = wn_stack_train.wn_stack_train_plain_fwd(*args, K, True)
+    _held([out, *xs.unbind(1)], [ref, *xs_ref.unbind(1)], True)
+    again = wn_stack_train._launch_fwd(*args, K, True)
+    assert torch.equal(out, again[0]) and torch.equal(xs, again[1])
+
+
+@pytest.mark.cuda
+def test_wn_stack_train_bf16_forward_is_one_library_call(device, monkeypatch):
+    """A bf16 forward is one call of the library, which launches the wgmma
+    layer kernel once a layer; f32 operands take the mma.sync kernel."""
+    from vispeech_tpu_torch.ops.kernels import _build
+
+    K, L = 5, 4
+    args, _ = _wn_train_inputs(device, 2, 200, L, seed=6)
+    wn_stack_train._launch_fwd(*args, K, True)
+    key = ("wn_stack_train", "wn_train_bf16_forward")
+    calls = []
+    fn = _build._FUNCS[key]
+    monkeypatch.setitem(_build._FUNCS, key, lambda *a: calls.append(a) or fn(*a))
+    names = {bf16: _device_kernels(lambda: wn_stack_train._launch_fwd(*args, K, bf16))
+             for bf16 in (True, False)}
+    assert len(calls) == 1
+    assert names[True].count("wf::layer_kernel") == 2 and "fwd_layer" not in names[True]
+    assert "fwd_layer<false>" in names[False] and "wf::" not in names[False]
+
+
+@pytest.mark.cuda
+def test_wn_stack_train_bf16_forward_refuses_on_the_card(device):
+    """C ≠ 192 and k > 5 raise on the card: no plain fallback."""
+    args, _ = _wn_train_inputs(device, 1, 40, 2, C=128)
+    with pytest.raises(ValueError, match="C = 192"):
+        wn_stack_train.wn_stack_train(*args, 5, bf16_compute=True)
+    args, _ = _wn_train_inputs(device, 1, 40, 2, K=7)
+    with pytest.raises(ValueError, match="k <= 5"):
+        wn_stack_train.wn_stack_train(*args, 7, bf16_compute=True)
+    with pytest.raises(RuntimeError, match="forward kernel launch failed"):
+        wn_stack_train._launch_fwd(*args, 7, True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,n_rel,rate,bf16", [(131, 1, 0.1, False), (64, 2, 0.0, False),
                                                (300, 1, 0.1, True), (128, 1, 0.1, True),
                                                (131, 2, 0.1, True), (640, 1, 0.1, True),

@@ -29,10 +29,9 @@
 // weights); accumulators, the gate, the residual carry, the skip sum and the
 // column sums stay f32, as the TPU kernel's bf16_compute does.
 //
-// Forward (both precisions) and the f32 backward: every product on mma.sync
-// m16n8k8 TF32.  A bf16 value is exact in TF32, so the bf16 forward takes
-// one pass; f32 takes the 3-pass split a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi
-// (kernel B's), which keeps f32 accuracy.  A block's 8 warps split its
+// The f32 forward and the f32 backward: every product on mma.sync m16n8k8
+// TF32 in the 3-pass split a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi (kernel
+// B's), which keeps f32 accuracy.  A block's 8 warps split its
 // BM = 32 frames in two m16 tiles and the output columns in 4 groups; warp
 // (m, n) owns n8 tiles n, n+4, ... of each C-wide half, so the tanh and
 // sigmoid halves of a gate column, and dz of the same column, land in the
@@ -66,6 +65,27 @@
 //   between two of them or moves their accumulators: the warpgroup index
 //   goes through a shuffle, ring arrivals are predicated inside their asm,
 //   and the gate's column sums are stored under no branch.
+//
+// The bf16 forward (namespace wf) runs on wgmma bf16 too, one launch a
+// layer, every layer of a call in one library call.  What bounds it: at
+// B = 12, T = 1024, k = 5 a layer is 10.9 GFLOP (11 µs at the bf16 peak)
+// against ~38 MB of f32 x_l, x_{l+1} and skip sums read and written (11 µs
+// at 3.35 TB/s); every block of 128 frames also streams the layer's 0.88 MB
+// of bf16 weights from L2.  Its design is bwd_act's: a block owns 128
+// frames of one batch item, one 64-row tile per warpgroup, x_l's window in
+// bf16 in shared memory; the weights come prepared once a call
+// (ops/kernels/wn_stack_train.py::prepare_fwd_weights) as core-matrix k
+// blocks that warp 0 streams by bulk copies into an mbarrier ring.  Per
+// 64-column chunk of C the gate's 64 tanh and 64 sigmoid columns are one
+// m64n128k16 product, so z of a column lands in one thread, and goes in
+// bf16 to a shared z tile; then rs = z·W_rs as two m64n192k16 halves
+// (residual, then skip: 2C columns of f32 accumulators do not fit beside
+// the rest), each with its epilogue.  A block runs its phases one after
+// another, so what is not a product is on the critical path: the epilogue's
+// f32 operand (x_l, or the skip sum) arrives by cp.async into shared memory
+// while the half's products run, and tanh and sigmoid take one special
+// function instruction each.  Stores past T are predicated inside their
+// asm, so no branch sits between the two halves' products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1143,6 +1163,310 @@ cudaError_t set_smem(Kern kernel, size_t bytes) {
 
 }  // namespace wg
 
+// ------------------------------------------------------- bf16 forward, wgmma
+
+namespace wf {
+using namespace wg;
+
+constexpr int FWD_SLOT = ACT_SLOT;   // bf16 per ring slot (16 KB): a gate k block, or a
+constexpr int RS_BLOCK = 32 * C;     // 32-deep k block of a W_rs half (12 KB)
+constexpr int EQ = C / 4;            // columns of an epilogue quarter
+constexpr int SLD = EQ + 8;          // padded row of an epilogue stage, floats (the 4 rows
+                                     // a half-warp reads in one float2 load hit distinct banks)
+
+// A block of WGS warpgroups, 64 rows each (no producer warp: warp 0
+// refills the ring).  WGS = 1 fits two blocks on an SM, so one block's
+// window load, gate and epilogue could overlap the other's products; WGS = 2
+// streams the weights once for twice the rows.  At B = 12 and T = 640 and
+// 1024 the two came within 2 % of each other (PERF.md §6):
+constexpr int FWD_WGS = 2;
+
+template <int WGS>
+struct Tile {
+  static constexpr int ROWS = 64 * WGS;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int NS = WGS == 2 ? 6 : 3;      // ring slots
+  static constexpr int XR = ROWS + 2 * PAD + 1;    // rows per chunk of the window (odd: the
+  static constexpr int ZR = ROWS + 1;              // stores across chunks hit distinct banks)
+  // the first region: x_l's window, then the epilogue's two stages
+  static constexpr size_t WIN = (size_t)(C / 8) * XR * 16, STAGES = (size_t)2 * ROWS * SLD * 4;
+  static constexpr size_t R1 = WIN > STAGES ? WIN : STAGES;
+  static constexpr size_t SMEM = R1 + ((size_t)(C / 8) * ZR * 8 + (size_t)NS * FWD_SLOT) * 2 +
+                                 2 * NS * 8;
+};
+
+// out[0], out[1] = a, b where pred holds: a store under no branch
+__device__ __forceinline__ void st2_if(float* out, float a, float b, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+               "@p st.global.v2.f32 [%0], {%1, %2};\n}\n"
+               ::"l"(out), "f"(a), "f"(b), "r"((int)pred) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// tanh on the special function unit (one instruction, relative error ~2^-11,
+// below z's bf16 rounding); sigmoid(v) = (1 + tanh(v/2)) / 2
+__device__ __forceinline__ float tanh_approx(float v) {
+  float r;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Block i of the layer's weight stream (9K gate blocks, then the W_rs
+// halves' blocks) into its slot of an ns-slot ring, by the thread where pred
+// holds; its bytes complete on the slot's full barrier
+__device__ __forceinline__ void stream_block(__nv_bfloat16* ring, uint64_t* full,
+                                             const __nv_bfloat16* __restrict__ w, int i,
+                                             int n_gate, int ns, bool pred) {
+  const bool gate = i < n_gate;
+  const uint32_t bytes = (gate ? ACT_SLOT : RS_BLOCK) * 2;
+  const size_t from = gate ? (size_t)i * ACT_SLOT
+                           : (size_t)n_gate * ACT_SLOT + (size_t)(i - n_gate) * RS_BLOCK;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n}\n"
+      ::"r"(smem_addr(ring + (i % ns) * FWD_SLOT)), "l"(w + from), "r"(bytes),
+        "r"(smem_addr(full + i % ns)), "r"((int)pred)
+      : "memory");
+}
+
+// Layer l of the bf16 forward: a block owns Tile<WGS>::ROWS rows of one
+// batch item, 64 a warpgroup.
+//   per chunk jc of C: a = cond + Σ_tap x_l window (shifted by the tap) ·
+//     W_in[tap][:, tanh and sigmoid columns of jc] (m64n128k16),
+//     z[:, jc] = tanh · sigmoid, bf16 into the z tile
+//   rs half h (residual, then skip unless LAST) = z · W_rs[:, h] + b_rs
+//     (m64n192k16), then its epilogue:
+//     LAST: out = (skip + rs_res)·m; else x_{l+1} = (x_l + rs_res)·m and
+//     skip += rs_skip, x_l re-read in f32.
+// The weights of the layer come prepared, k block by k block, through the
+// ring: 9K gate blocks (chunk, tap, 64 input channels), then 6 k blocks of
+// 32 channels a half; warp 0 copies block i − 1 + NS into the slot block
+// i − 1 leaves while block i's products run.  An epilogue's f32 operand
+// (x_l, or the skip sum) comes in four column quarters through two stages
+// in the window's space, copied by cp.async while the half's products run.
+// The skip sum starts at zero (the caller zeroes it).
+template <int WGS, bool LAST>
+__global__ void __launch_bounds__(Tile<WGS>::THREADS, 3 - WGS)
+layer_kernel(float* __restrict__ xs, float* __restrict__ skip, float* __restrict__ out,
+             const float* __restrict__ mask, const float* __restrict__ cond,
+             const __nv_bfloat16* __restrict__ w, const float* __restrict__ b_rs, int T, int L,
+             int l, int K) {
+  using Tl = Tile<WGS>;
+  constexpr int ROWS = Tl::ROWS, NTH = Tl::THREADS, NS = Tl::NS, XR = Tl::XR, ZR = Tl::ZR;
+  constexpr int HALVES = LAST ? 1 : 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xw = reinterpret_cast<__nv_bfloat16*>(smem);   // [C/8][XR][8]
+  float* stage = reinterpret_cast<float*>(smem);                // [2][ROWS][SLD], after the gate
+  __nv_bfloat16* zs = reinterpret_cast<__nv_bfloat16*>(smem + Tl::R1);   // [C/8][ZR][8]
+  __nv_bfloat16* ring = zs + (C / 8) * ZR * 8;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NS * FWD_SLOT);
+  uint64_t* empty = full + NS;
+  const int tid = threadIdx.x, pad = K / 2, b = blockIdx.y, t0 = blockIdx.x * ROWS;
+  const int n_gate = 9 * K, total = n_gate + 6 * HALVES;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NTH / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NS; ++i) stream_block(ring, full, w, i, n_gate, NS, tid == 0);
+
+  // x_l's window [t0 − pad, t0 + ROWS + pad) in bf16, zeros outside [0, T)
+  const float* xl = xs + ((size_t)b * L + l) * T * C;
+  {
+    constexpr int XU = 8;
+    const int pieces = (ROWS + 2 * pad) * (C / 8);
+    for (int base = tid; base < pieces; base += XU * NTH) {
+      float v[XU][8];
+#pragma unroll
+      for (int u = 0; u < XU; ++u) {
+        const int i = base + u * NTH, r = i / (C / 8), t = t0 - pad + r;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[u][e] = 0.f;
+        if (i < pieces && t >= 0 && t < T) load8(v[u], xl + (size_t)t * C + 8 * (i % (C / 8)), 1.f);
+      }
+#pragma unroll
+      for (int u = 0; u < XU; ++u) {
+        const int i = base + u * NTH;
+        if (i < pieces)
+          *reinterpret_cast<uint4*>(xw + ((i % (C / 8)) * XR + i / (C / 8)) * 8) = pack8(v[u]);
+      }
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  // the warpgroup and warp through a shuffle: the wgmma below sit on no divergent path
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const bool lead = __shfl_sync(0xffffffffu, tid >> 5, 0) == 0;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const float* cl = cond + ((size_t)b * L + l) * C2;
+  int it = 0;
+  // after block `it` is issued: the arrival on the slot of block it − 1, and
+  // warp 0's refill of that slot with block it − 1 + NS
+  const auto release = [&](int prev) {
+    mbar_arrive_if(empty + max(prev, 0), prev >= 0 && lane == 0);
+    if (lead && it >= 1 && it - 1 + NS < total) {
+      mbar_wait(empty + (it - 1) % NS, ((it - 1) / NS) & 1);
+      stream_block(ring, full, w, it - 1 + NS, n_gate, NS, lane == 0);
+    }
+  };
+  for (int jc = 0; jc < 3; ++jc) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    fence_acc(acc);
+    int prev = -1;
+    // tap q / 3, input channels [64·(q % 3), +64): window row 64·wg + tap
+    for (int q = 0; q < 3 * K; ++q, ++it) {
+      const int slot = it % NS;
+      mbar_wait(full + slot, (it / NS) & 1);
+      const __nv_bfloat16* xa = xw + (8 * (q % 3) * XR + 64 * wg + q / 3) * 8;
+      const __nv_bfloat16* wb = ring + slot * FWD_SLOT;
+      wg_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < 4; ++k16)
+        wgmma_n128(acc, smem_desc(xa + 2 * k16 * XR * 8, XR * 16, 128),
+                   smem_desc(wb + 2 * k16 * 64, 128, 1024));
+      wg_commit();
+      // the k block before is done with its slot once at most this one is pending
+      wg_wait<1>();
+      release(prev);
+      prev = slot;
+    }
+    wg_wait<0>();
+    fence_acc(acc);
+    mbar_arrive_if(empty + prev, lane == 0);
+    // z of this thread's rows and the chunk's columns, bf16 into the z tile
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+      const int c = 64 * jc + 8 * n8 + 2 * tq;
+      const float2 ct = *reinterpret_cast<const float2*>(cl + c);
+      const float2 cs = *reinterpret_cast<const float2*>(cl + C + c);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int e = 4 * n8 + 2 * hr;
+        const float z0 =
+            tanh_approx(acc[e] + ct.x) * fmaf(0.5f, tanh_approx(0.5f * (acc[32 + e] + cs.x)), 0.5f);
+        const float z1 = tanh_approx(acc[e + 1] + ct.y) *
+                         fmaf(0.5f, tanh_approx(0.5f * (acc[33 + e] + cs.y)), 0.5f);
+        const int r = 64 * wg + 16 * warp + g + 8 * hr;
+        *reinterpret_cast<uint32_t*>(zs + ((8 * jc + n8) * ZR + r) * 8 + 2 * tq) = pack2(z0, z1);
+      }
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  // columns [EQ·q, +EQ) of rows [t0, t0 + ROWS) of src (this item's rows;
+  // rows past T read at T − 1) into stage q & 1
+  const auto fetch = [&](const float* src, int q) {
+    float* st = stage + (q & 1) * ROWS * SLD;
+#pragma unroll
+    for (int k = 0; k < ROWS * EQ / 4 / NTH; ++k) {
+      const int i = tid + k * NTH, r = i / (EQ / 4), p = i % (EQ / 4);
+      cp16(st + r * SLD + 4 * p, src + (size_t)min(t0 + r, T - 1) * C + EQ * q + 4 * p);
+    }
+    cp_commit();
+  };
+  float* xn = xs + ((size_t)b * L + l + 1) * T * C;   // written only below the last layer
+  const size_t item = (size_t)b * T * C;
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h) {
+    const float* src = h == 0 && !LAST ? xl : skip + item;
+    fetch(src, 0);
+    fetch(src, 1);
+    float acc[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+    fence_acc(acc);
+    int prev = -1;
+    // z channels [32·kb, +32) with W_rs rows [32·kb, +32), columns [C·h, +C)
+    for (int kb = 0; kb < 6; ++kb, ++it) {
+      const int slot = it % NS;
+      mbar_wait(full + slot, (it / NS) & 1);
+      const __nv_bfloat16* za = zs + (4 * kb * ZR + 64 * wg) * 8;
+      const __nv_bfloat16* wb = ring + slot * FWD_SLOT;
+      wg_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16)
+        wgmma_n192(acc, smem_desc(za + 2 * k16 * ZR * 8, ZR * 16, 128),
+                   smem_desc(wb + 2 * k16 * 64, 128, 512));
+      wg_commit();
+      wg_wait<1>();
+      release(prev);
+      prev = slot;
+    }
+    wg_wait<0>();
+    fence_acc(acc);
+    mbar_arrive_if(empty + prev, lane == 0);
+    // the epilogue, a quarter at a time: rows past T are never stored
+    bool in[2];
+    size_t o[2];
+    float m[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + 64 * wg + 16 * warp + g + 8 * hr;
+      in[hr] = t < T;
+      o[hr] = (size_t)(in[hr] ? t : T - 1) * C;
+      m[hr] = mask[(size_t)b * T + (in[hr] ? t : T - 1)];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q < 3)
+        cp_wait<1>();
+      else
+        cp_wait<0>();
+      __syncthreads();
+      const float* st = stage + (q & 1) * ROWS * SLD + (64 * wg + 16 * warp + g) * SLD + 2 * tq;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+        for (int j = 0; j < EQ / 8; ++j) {
+          const int n8 = EQ / 8 * q + j, c = 8 * n8 + 2 * tq;
+          const float2 v = *reinterpret_cast<const float2*>(st + 8 * hr * SLD + 8 * j);
+          const float2 bias = *reinterpret_cast<const float2*>(b_rs + h * C + c);
+          const float r0 = acc[4 * n8 + 2 * hr] + bias.x, r1 = acc[4 * n8 + 2 * hr + 1] + bias.y;
+          if (h == 0 && !LAST)
+            st2_if(xn + o[hr] + c, (v.x + r0) * m[hr], (v.y + r1) * m[hr], in[hr]);
+          else if (LAST)
+            st2_if(out + item + o[hr] + c, (v.x + r0) * m[hr], (v.y + r1) * m[hr], in[hr]);
+          else
+            st2_if(skip + item + o[hr] + c, v.x + r0, v.y + r1, in[hr]);
+        }
+      __syncthreads();
+      if (q < 2) fetch(src, q + 2);
+    }
+  }
+}
+
+template <int WGS>
+cudaError_t launch_layers(float* xs, float* skip, float* out, const float* mask,
+                          const float* cond, const __nv_bfloat16* w, const float* b_rs, int B,
+                          int T, int L, int K, cudaStream_t st) {
+  using Tl = Tile<WGS>;
+  const size_t w_l = (size_t)9 * K * ACT_SLOT + (size_t)C * C2;
+  dim3 rows((T + Tl::ROWS - 1) / Tl::ROWS, B);
+  for (int l = 0; l < L; ++l) {
+    auto kernel = l == L - 1 ? layer_kernel<WGS, true> : layer_kernel<WGS, false>;
+    kernel<<<rows, Tl::THREADS, Tl::SMEM, st>>>(xs, skip, out, mask, cond, w + l * w_l,
+                                                b_rs + (size_t)l * C2, T, L, l, K);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace wf
+
 }  // namespace
 
 // Layout: xs [B, L, T, C] (xs[:, 0] = x, filled by the caller); skip, out
@@ -1151,12 +1475,13 @@ cudaError_t set_smem(Kern kernel, size_t bytes) {
 // Every entry returns a cudaError_t as int.
 extern "C" int wn_train_row_tile() { return BM; }
 
+// The f32 forward, layer l.
 extern "C" int wn_train_fwd_layer(float* xs, float* skip, float* out, const float* mask,
                                   const float* cond, const float* w_in, const float* w_rs,
                                   const float* b_rs, int B, int T, int L, int l, int K,
-                                  int bf16, void* stream) {
+                                  void* stream) {
   if (bad_k(K)) return (int)cudaErrorInvalidValue;
-  auto kernel = bf16 ? fwd_layer<true> : fwd_layer<false>;
+  auto kernel = fwd_layer<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -1214,6 +1539,28 @@ extern "C" int wn_train_wgrad(const float* P, const float* Q, float* out, int p_
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       P, Q, out, p_bstride, taps, Cp, N, B, T, rows, out_sstride);
   return (int)cudaGetLastError();
+}
+
+// The bf16 forward on wgmma, every layer in order (K odd ≤ 5).
+//   xs [B, L, T, C] f32 with xs[:, 0] = x; skip [B, T, C] f32, zeroed by the
+//   caller; out [B, T, C]; mask [B, T], cond [B, L, 2C], b_rs [L, 2C]: f32.
+//   w [L, 9K·8192 + C·2C]: prepare_fwd_weights (bf16).
+extern "C" int wn_train_bf16_forward(float* xs, float* skip, float* out, const float* mask,
+                                     const float* cond, const void* w, const float* b_rs, int B,
+                                     int T, int L, int K, void* stream) {
+  using wf::FWD_WGS;
+  if (K % 2 == 0 || K / 2 > wg::PAD) return (int)cudaErrorInvalidValue;
+  // the kernels' shared-memory limit, set once per loaded library
+  static const cudaError_t ready = [] {
+    const cudaError_t err = wg::set_smem(wf::layer_kernel<FWD_WGS, false>, wf::Tile<FWD_WGS>::SMEM);
+    return err == cudaSuccess ? wg::set_smem(wf::layer_kernel<FWD_WGS, true>,
+                                             wf::Tile<FWD_WGS>::SMEM)
+                              : err;
+  }();
+  if (ready != cudaSuccess) return (int)ready;
+  return (int)wf::launch_layers<FWD_WGS>(xs, skip, out, mask, cond,
+                                         static_cast<const __nv_bfloat16*>(w), b_rs, B, T, L, K,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 backward on wgmma, every layer in reverse (the three entries above

@@ -9,15 +9,17 @@ and the weight gradients; weight and bias gradients are per-tile partial
 sums reduced here in a fixed order, so a run is reproducible bit for bit.
 
 The CUDA kernels run one layer per launch with a halo of k//2 frames (no
-recomputed L·(k//2) halo as kernel B has, so any depth works).  The
-forward and the f32 backward run every product on the tensor cores as
-mma.sync TF32, one pass for bf16 operands, three for f32.  The bf16
-backward runs on wgmma (k <= 5): per layer the gate and dz, dx, and the
-weight gradients, over bf16 intermediates in a tiled layout
-(``to_tiled``), with its weights laid out once a call by
-``prepare_bwd_weights``; one call of the library runs every layer.
-``wn_stack_train_tiled_bwd`` is its data flow in plain PyTorch, which the
-CPU tests hold to the plain backward.
+recomputed L·(k//2) halo as kernel B has, so any depth works).  With f32
+operands the forward and the backward run every product on the tensor
+cores as 3-pass mma.sync TF32, one library call a layer.  With bf16
+operands both run on wgmma (k <= 5), one library call running every layer:
+the forward per layer the gate and the two halves of the res/skip product,
+its weights laid out once a call by ``prepare_fwd_weights``; the backward
+per layer the gate and dz, dx, and the weight gradients, over bf16
+intermediates in a tiled layout (``to_tiled``), its weights laid out once a
+call by ``prepare_bwd_weights``.  ``wn_stack_train_tiled_fwd`` and
+``wn_stack_train_tiled_bwd`` are their data flows in plain PyTorch, which
+the CPU tests hold to the plain forward and backward.
 
 ``bf16_compute``: every matmul operand is rounded to bf16, every
 accumulator, carry, gate and column sum stays f32, as in the TPU kernel.
@@ -116,8 +118,10 @@ WGRAD_ROWS = 64          # rows a weight-gradient stage carries (wg::RK)
 WGRAD_SPLITS_BF16 = 7    # row splits of each bf16 weight-gradient product (wg::WGRAD_SPLITS)
 WGRAD_GROUP = 3          # products a weight-gradient block takes (wg::TAPG)
 BF16_MAX_K = 5           # the bf16 kernels' largest kernel size (wg::PAD = 2)
-ACT_BLOCK = 8192         # bf16 per prepared k block of bwd_act (wg::ACT_SLOT)
+ACT_BLOCK = 8192         # bf16 per prepared k block of the gate (wg::ACT_SLOT)
 DX_BLOCK = 64 * _SUPPORTED_C   # ... of bwd_dx (wg::DX_SLOT)
+RS_BLOCK = 32 * _SUPPORTED_C   # ... of the forward's res/skip halves (wf::RS_BLOCK)
+FWD_ROWS = 128                 # rows a block of the bf16 forward owns (wf::FWD_WGS warpgroups)
 
 
 def tiled_rows(T: int):
@@ -157,17 +161,41 @@ class BwdWeights(NamedTuple):
     dx: torch.Tensor
 
 
+def _gate_blocks(wi: torch.Tensor) -> torch.Tensor:
+    """W_in [L, k, C, 2C] → the gate's k blocks [L, 3, 3k·ACT_BLOCK]: per
+    64-column chunk jc, for each tap and each 64-deep k block, the columns
+    [64jc, +64) (tanh) and [C + 64jc, +64) (sigmoid)."""
+    L, k, C, _ = wi.shape
+    # [L, k, C, 2 halves, 3 jc, 64] → [L, jc, k, kb, n/8, k/8, 8 n, 8 k]
+    a = wi.reshape(L, k, C, 2, 3, 64).permute(0, 4, 1, 2, 3, 5)
+    a = a.reshape(L, 3, k, 3, 8, 8, 16, 8).permute(0, 1, 2, 3, 6, 4, 7, 5)
+    return a.reshape(L, 3, 3 * k * ACT_BLOCK)
+
+
+def prepare_fwd_weights(w_in: torch.Tensor, w_rs: torch.Tensor) -> torch.Tensor:
+    """w_in [L, k, C, 2C], w_rs [L, C, 2C] → the bf16 forward's weights
+    [L, 9k·ACT_BLOCK + 12·RS_BLOCK] in bf16, made once per forward call, in
+    the order its kernel streams them as wgmma's K-major core matrices
+    ([n/8][k/8][8 n][8 k] per k block): per layer the gate's k blocks as
+    ``prepare_bwd_weights`` lays them out for bwd_act, then W_rs as it is
+    (K = C, N = 2C) in two halves of C columns (residual, skip), each in
+    six 32-deep k blocks."""
+    L, k, C, C2 = w_in.shape
+    with torch.no_grad():
+        gate = _gate_blocks(w_in.detach().to(torch.bfloat16)).reshape(L, -1)
+        # W_rs: [L, kb, k/8, 8 k, half, n/8, 8 n] → [L, half, kb, n/8, k/8, 8 n, 8 k]
+        r = w_rs.detach().to(torch.bfloat16).reshape(L, 6, 4, 8, 2, C // 8, 8)
+        r = r.permute(0, 4, 1, 5, 2, 6, 3).reshape(L, 12 * RS_BLOCK)
+        return torch.cat([gate, r], dim=1)
+
+
 def prepare_bwd_weights(w_in: torch.Tensor, w_rs: torch.Tensor) -> BwdWeights:
     """w_in [L, k, C, 2C], w_rs [L, C, 2C] → ``BwdWeights`` in bf16, made
     once per backward call (the weights change at every optimizer step)."""
     L, k, C, C2 = w_in.shape
     with torch.no_grad():
         wi = w_in.detach().to(torch.bfloat16)
-        # act, W_in: [L, k, C, 2 halves, 3 jc, 64]
-        #   → [L, jc, k, kb, n/8, k/8, 8 n, 8 k]
-        a = wi.reshape(L, k, C, 2, 3, 64).permute(0, 4, 1, 2, 3, 5)
-        a = a.reshape(L, 3, k, 3, 8, 8, 16, 8).permute(0, 1, 2, 3, 6, 4, 7, 5)
-        a = a.reshape(L, 3, 3 * k * ACT_BLOCK)
+        a = _gate_blocks(wi)
         # act, W_rsᵀ: B[j][c] = W_rs[c][j]: [L, jc, n/8, 8 n, kb, k/8, 8 k]
         #   → [L, jc, kb, n/8, k/8, 8 n, 8 k]
         r = w_rs.detach().to(torch.bfloat16).reshape(L, 3, 8, 8, 3, 16, 8)
@@ -194,9 +222,56 @@ def bwd_grid(B: int, T: int, kernel_size: int) -> dict:
             "splits": splits}
 
 
+def fwd_grid(B: int, T: int) -> tuple:
+    """The bf16 forward's launch for one layer: (blocks, threads), a block
+    of FWD_ROWS rows of one batch item, 64 a warpgroup."""
+    return (-(-T // FWD_ROWS), B), 2 * FWD_ROWS
+
+
 def _act_block(block: torch.Tensor, n: int) -> torch.Tensor:
     """One prepared k block ([n/8][k/8][8 n][8 k]) as its [k, n] matrix."""
     return block.reshape(n // 8, -1, 8, 8).permute(1, 3, 0, 2).reshape(-1, n)
+
+
+def wn_stack_train_tiled_fwd(x, mask, cond, w: torch.Tensor, b_rs, kernel_size: int):
+    """The bf16 forward as its wgmma kernel computes it, in plain PyTorch:
+    each layer's x_l window in bf16 over rows up to whole 128-row blocks
+    (zeros outside [0, T)), the gate chunk by chunk from ``w``'s
+    (``prepare_fwd_weights``) k blocks, z in bf16, rs in its residual and
+    skip halves, and the epilogue in f32 with x_l re-read unrounded.  Shapes
+    as ``wn_stack_train_plain_fwd``; equals it with ``bf16_compute`` up to
+    f32 summation order; the CPU tests hold the layout to it."""
+    B, T, C = x.shape
+    L, k, pad = w.shape[0], kernel_size, kernel_size // 2
+    Tr, _ = tiled_rows(T)
+    n_gate = 9 * k * ACT_BLOCK
+    rows = lambda t: F.pad(t, (0, 0, 0, Tr - T))  # noqa: E731  [B, T, ·] → [B, Tr, ·]
+    m = rows(mask)
+    xl, xs = rows(x), [x]
+    skip = torch.zeros(B, Tr, C)
+    for l in range(L):
+        gate = w[l, :n_gate].reshape(3, 3 * k, ACT_BLOCK).float()
+        halves = w[l, n_gate:].reshape(2, 6, RS_BLOCK).float()
+        xw = F.pad(xl[:, :T].to(torch.bfloat16).float(), (0, 0, pad, Tr - T + pad))
+        z = torch.zeros(B, Tr, C)
+        for jc in range(3):
+            a = torch.zeros(B, Tr, 128)
+            for tap in range(k):
+                for kb in range(3):
+                    a = a + xw[:, tap:tap + Tr, 64 * kb:64 * kb + 64] @ _act_block(
+                        gate[jc, 3 * tap + kb], 128)
+            cols = slice(64 * jc, 64 * jc + 64)
+            th = torch.tanh(a[..., :64] + cond[:, l, None, cols])
+            sg = torch.sigmoid(a[..., 64:] + cond[:, l, None, C + 64 * jc:C + 64 * jc + 64])
+            z[..., cols] = th * sg
+        zb = z.to(torch.bfloat16).float()
+        rs = [sum(zb[..., 32 * kb:32 * kb + 32] @ _act_block(halves[h, kb], C) for kb in range(6))
+              + b_rs[l, :, C * h:C * h + C] for h in range(2 if l < L - 1 else 1)]
+        if l == L - 1:
+            return ((skip + rs[0]) * m)[:, :T], torch.stack(xs, dim=1)
+        xl = (xl + rs[0]) * m
+        skip = skip + rs[1]
+        xs.append(xl[:, :T])
 
 
 def wn_stack_train_tiled_bwd(dout, xs, mask, cond, prep: BwdWeights, kernel_size: int):
@@ -304,22 +379,39 @@ def _check(x, mask, cond, w_in, w_rs, b_rs, kernel_size):
                          f"k <= 7; got C={C}, k={kernel_size}")
 
 
+FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
 def _launch_fwd(x, mask, cond, w_in, w_rs, b_rs, kernel_size, bf16):
+    """Kernel E's forward on the card → (out [B, T, C], xs [B, L, T, C]),
+    f32: bf16 operands on wgmma, one library call for every layer, with the
+    weights prepared once (``prepare_fwd_weights``); f32 operands on the
+    3-pass TF32 mma.sync kernel, one call a layer."""
     global fwd_launches
     B, T, C = x.shape
     L = w_in.shape[0]
-    mask, cond, w_in, w_rs, b_rs = map(_f32, (mask, cond, w_in, w_rs, b_rs))
-    xs = torch.empty(B, L, T, C, device=x.device)
+    dev = x.device
+    mask, cond, b_rs = map(_f32, (mask, cond, b_rs))
+    xs = torch.empty(B, L, T, C, device=dev)
     xs[:, 0].copy_(x.detach())
-    skip = torch.empty(B, T, C, device=x.device)
-    out = torch.empty_like(skip)
-    fn = _fn(_build.load("wn_stack_train"), "wn_train_fwd_layer", 8, 6)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    for l in range(L):
+    out = torch.empty(B, T, C, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bf16:
+        skip = torch.zeros(B, T, C, device=dev)
+        w = prepare_fwd_weights(w_in, w_rs)
+        fn = _build.function("wn_stack_train", "wn_train_bf16_forward", FWD_ARGTYPES)
         status = fn(xs.data_ptr(), skip.data_ptr(), out.data_ptr(), mask.data_ptr(),
-                    cond.data_ptr(), w_in[l].data_ptr(), w_rs[l].data_ptr(),
-                    b_rs[l].data_ptr(), B, T, L, l, kernel_size, int(bf16), stream)
+                    cond.data_ptr(), w.data_ptr(), b_rs.data_ptr(), B, T, L, kernel_size, stream)
         _build.check(status, "wn_stack_train forward")
+    else:
+        w_in, w_rs = _f32(w_in), _f32(w_rs)
+        skip = torch.empty(B, T, C, device=dev)
+        fn = _fn(_build.load("wn_stack_train"), "wn_train_fwd_layer", 8, 5)
+        for l in range(L):
+            status = fn(xs.data_ptr(), skip.data_ptr(), out.data_ptr(), mask.data_ptr(),
+                        cond.data_ptr(), w_in[l].data_ptr(), w_rs[l].data_ptr(),
+                        b_rs[l].data_ptr(), B, T, L, l, kernel_size, stream)
+            _build.check(status, "wn_stack_train forward")
     fwd_launches += 1
     return out, xs
 
@@ -449,7 +541,7 @@ def wn_stack_train(x, mask, cond, w_in, w_rs, b_rs, kernel_size: int,
     if bf16_compute is None:
         bf16_compute = x.dtype == torch.bfloat16
     if bf16_compute and x.device.type != "cpu" and kernel_size > BF16_MAX_K:
-        raise ValueError(f"wn_stack_train's bf16 backward takes k <= {BF16_MAX_K}; "
+        raise ValueError(f"wn_stack_train's bf16 kernels take k <= {BF16_MAX_K}; "
                          f"got k={kernel_size}")
     return _WNStackTrain.apply(x, mask, cond, w_in, w_rs, b_rs, kernel_size,
                                bool(bf16_compute))

@@ -34,7 +34,10 @@ VARIANTS = {
     # neither side waits: the consumers would run phases ahead of a producer
     # that waits on their arrivals
     "no weight stream": [
-        ("    mbar_wait(ring.full + slot, (it / NSLOT) & 1);\n", ""),
+        ("      mbar_wait(ring.full + slot, (it / NSLOT) & 1);\n      mbar_arrive_if(",
+         "      mbar_arrive_if("),
+        ("    mbar_wait(ring.full + slot, (it / NSLOT) & 1);\n    const __nv_bfloat16* a = src",
+         "    const __nv_bfloat16* a = src"),
         ("        if (i >= NSLOT) mbar_wait(ring.empty + slot, ((i / NSLOT) - 1) & 1);\n"
          "        bulk_load(", "        if (false) bulk_load(")],
     "no unit barriers": [("      consumer_sync();\n      conv_bf16<0>", "      conv_bf16<0>"),

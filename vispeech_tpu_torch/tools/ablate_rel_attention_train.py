@@ -32,8 +32,12 @@ VARIANTS = {
     "q pass only": [("  else\n    kv_pass<D, DROP>(", "  else if (false)\n    kv_pass<D, DROP>(")],
     "kv pass only": [("  if (blockIdx.z == 0)\n    q_pass<D, DROP>(",
                       "  if (blockIdx.z == 0)\n    ;\n  else if (false)\n    q_pass<D, DROP>(")],
-    "no wgmma": [(_SS, _SS.replace("k < D / 16", "k < 0")),
-                 (_RS, _RS.replace("kk < 4", "kk < 0"))],
+    # each product's loop, named by its operands
+    "no wgmma": [(_SS + a, _SS.replace("k < D / 16", "k < 0") + a)
+                 for a in ("s, smem_desc(sm.q", "dp, smem_desc(sm.dout", "s, smem_desc(sm.k",
+                           "dp, smem_desc(sm.v")]
+                + [(_RS + a, _RS.replace("kk < 4", "kk < 0") + a)
+                   for a in ("acc, a[kk]", "gv, apd[kk]", "gk, ads[kk]")],
     "no keep hash": [("  return fmix32(rk ^ jk) >= thresh ? inv : 0.f;",
                       "  return (rk ^ jk) >= thresh ? inv : 0.f;")],
     "no exp": [("__expf(sc - lse_r[hr])", "(sc - lse_r[hr])"),
