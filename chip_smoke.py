@@ -28,12 +28,13 @@ and check them.
    L = 4 (a flow coupling), F with key padding at rates 0.1 and 0, each in
    f32 and with bf16 operands; E's bf16 backward at L = 16 and F's at
    T = 1024 also with their device time by sub-kernel (torch.profiler)
-   beside their totals.  E's bf16 forward and F's bf16 backward also on
-   the operands the training step hands them (E: bf16 x and mask, the
-   weights ``WN.packed`` builds from bf16-cast parameters and cond, f32, at
-   L = 16 and T = 1024, 896 and 640; F: bf16 strided views at T = 1024,
-   640 and 128), each output held to the plain version on f32 copies
-   (out and every layer's xs for E), with their device time by op.
+   beside their totals.  E's bf16 forward and F's bf16 forward and
+   backward also on the operands the training step hands them (E: bf16 x
+   and mask, the weights ``WN.packed`` builds from bf16-cast parameters and
+   cond, f32, at L = 16 and T = 1024, 896 and 640; F: bf16 strided views at
+   T = 1024, 640 and 128), each output held to the plain version on f32
+   copies (out and every layer's xs for E; F's lse also within 1e-3
+   absolute), with their device time by op.
 3. Builds the engine at the full width of ``configs/config.json`` with
    weights drawn from a seed, resets the launch counters and serves three
    ``synthesize`` requests (one with explicit durations in the 1400-frame
@@ -87,6 +88,13 @@ last, for the checkout this file sits in.
 prints E's bf16 backward at B = 12, T = 1024, L = 16: its time a call and
 its device time by op (each sub-kernel over the 16 layers, the wrapper's own
 ops), as one JSON line last, for the checkout this file sits in.
+
+    python3 chip_smoke.py --f-fwd
+
+prints F's bf16 forward at B = 12, H = 2, d = 96, rate 0.1 with padded
+keys, at T = 1024, 640 and 128, on the training step's bf16 strided
+operands: per T its time a call, its host dispatch and its device time by
+op, as one JSON line last, for the checkout this file sits in.
 
     python3 chip_smoke.py --f-bwd
 
@@ -709,6 +717,42 @@ def f_bwd_inputs(torch, dev, T: int) -> tuple:
     return dout, q, k, v, rel_k, rel_v, key_mask, out, lse
 
 
+def f_fwd_breakdown(torch, dev, T: int, reps: int = 5) -> dict:
+    """Kernel F's bf16 forward on the training step's operands at T
+    (``f_bwd_inputs``' bf16 q, k, v views, bf16 rel tables, key mask): its
+    time per call, host dispatch and device time per call by op, through
+    ``_launch_fwd``, which every version of the wrapper has: a copy of this
+    file in another checkout measures that one (--f-fwd).  "grads" holds
+    (out, lse)."""
+    from vispeech_tpu_torch.ops.kernels import rel_attention_train as F_
+
+    ops = f_bwd_inputs(torch, dev, T)[1:7]
+    return _by_op(torch, lambda: F_._launch_fwd(*ops, 99, F_RATE, 4, True), reps)
+
+
+def check_f_fwd(torch, dev, T: int) -> dict:
+    """Phase 2b: kernel F's bf16 forward on the training step's operands at
+    T (``f_fwd_breakdown``), out and lse held to the plain version on f32
+    copies of the same operands (``_held``'s 2^-7 of each peak), lse also
+    within 1e-3 absolute, since the backward rebuilds p = exp(s − lse) from
+    it, and its device time by op.  → the breakdown with ``max_abs_err``."""
+    from vispeech_tpu_torch.ops.kernels import rel_attention_train as F_
+
+    r = f_fwd_breakdown(torch, dev, T)
+    out, lse = r.pop("grads")
+    f = [t.float() for t in f_bwd_inputs(torch, dev, T)[1:7]]
+    ref, lse_ref = F_.relative_self_attention_train_plain_fwd(*f, 99, F_RATE, 4, True)
+    print(f"kernel F bf16 forward on the training step's operands, T={T}:")
+    r["max_abs_err"] = _held(("fwd", ("out", "lse")), (out, lse), (ref, lse_ref), True)
+    err = (lse - lse_ref).abs().max().item()
+    print(f"    fwd lse: max_abs_err {err:.3e}, limit 1e-3 absolute "
+          f"{'ok' if err <= 1e-3 else 'FAIL'}")
+    if not err <= 1e-3:
+        raise AssertionError(f"fwd lse disagrees: {err} > 1e-3")
+    print_f("fwd", T, r)
+    return r
+
+
 def f_bwd_breakdown(torch, dev, T: int, reps: int = 5) -> dict:
     """Kernel F's bf16 backward on ``f_bwd_inputs(T)``: its time per call and
     the device time per call of each op it launches (the backward's kernels
@@ -738,13 +782,15 @@ def check_f_bwd(torch, dev, T: int) -> dict:
                                                       99, F_RATE, 4, True)
     print(f"kernel F bf16 backward on the training step's operands, T={T}:")
     r["max_abs_err"] = _held(("bwd", ("dq", "dk", "dv", "drel_k", "drel_v")), grads, refs, True)
-    print_f_bwd(T, r)
+    print_f("bwd", T, r)
     return r
 
 
-def print_f_bwd(T: int, r: dict) -> None:
+def print_f(direction: str, T: int, r: dict) -> None:
+    """Kernel F's bf16 forward or backward ("fwd", "bwd") at T: its time a
+    call, host dispatch and device time by op."""
     B, H, d = F_BWD_SHAPE
-    print(f"  rel_attention_train_bwd B={B} H={H} T={T} d={d} rate {F_RATE} bf16: "
+    print(f"  rel_attention_train_{direction} B={B} H={H} T={T} d={d} rate {F_RATE} bf16: "
           f"{r['ms']:.4f} ms a call ({r['host_ms']:.4f} ms of host dispatch), "
           f"{r['device_ms']:.4f} ms of device time by the profiler:")
     for name, (ms, n) in r["ops"].items():
@@ -826,25 +872,26 @@ def check_train_kernels(torch, dev):
         print(f"kernel F rel_attention_train B={B} H={H} T={T} rate={rate} {dt}:")
         out, lse = F_._launch_fwd(*args, 99, rate, 4, bf16)
         ref, lse_ref = F_.relative_self_attention_train_plain_fwd(*args, 99, rate, 4, bf16)
-        err_f = _held(("fwd", ("out", "lse")), (out, lse), (ref, lse_ref), bf16)
+        _held(("fwd", ("out", "lse")), (out, lse), (ref, lse_ref), bf16)
         grads = F_._launch_bwd(dout, *args, out, lse, 99, rate, 4, bf16)
         refs = F_.relative_self_attention_train_plain_bwd(dout, *args, lse_ref, 99, rate, 4,
                                                           bf16)
         _held(("bwd", ("dq", "dk", "dv", "drel_k", "drel_v")), grads, refs, bf16)
-        if not bf16:
-            continue
-        ms = time_ms(lambda: F_._launch_fwd(*args, 99, rate, 4, bf16), 5)
-        plain = time_ms(lambda: F_.relative_self_attention_train_plain_fwd(
-            *args, 99, rate, 4, bf16), 5)
-        b_ms, b_by = bound(nbytes(*args, out, lse), 4.0 * B * H * T * T * d, dt)
-        rows["rel_attention_train_fwd"] = dict(max_abs_err=err_f, ms=ms, plain_ms=plain,
-                                               bound_ms=b_ms, bound_by=b_by)
-    # the bf16 backward on the operands the training step hands it (bf16
-    # strided views), at T = 1024 and the main path's frame bucket and
-    # phoneme length, each held to the plain version and timed by sub-kernel
+    # the bf16 forward and backward on the operands the training step hands
+    # them (bf16 strided views), at T = 1024 and the main path's frame bucket
+    # and phoneme length, each held to the plain version and timed by op
+    checked_f = {T_: check_f_fwd(torch, dev, T_) for T_ in F_BWD_T}
     checked = {T_: check_f_bwd(torch, dev, T_) for T_ in F_BWD_T}
     x = f_bwd_inputs(torch, dev, T)
     f = [t.float() for t in x]
+    plain = time_ms(lambda: F_.relative_self_attention_train_plain_fwd(
+        *f[1:7], 99, F_RATE, 4, True), 5)
+    # two T×T products: scores and p·v; out and lse f32
+    b_ms, b_by = bound(nbytes(*x[1:7]) + B * H * T * (d + 1) * 4, 4.0 * B * H * T * T * d,
+                       "bfloat16")
+    rows["rel_attention_train_fwd"] = dict(max_abs_err=checked_f[T]["max_abs_err"],
+                                           ms=checked_f[T]["ms"], plain_ms=plain, bound_ms=b_ms,
+                                           bound_by=b_by)
     plain = time_ms(lambda: F_.relative_self_attention_train_plain_bwd(
         *f[:7], f[8], 99, F_RATE, 4, True), 5)
     # five T×T products: scores, dO·vᵀ, dv, dq, dk; out: dq, dk, dv and the rel tables' grads
@@ -975,13 +1022,15 @@ def serve(torch, dev, cfg, state_dict):
     return engine, counts, expect, requests, plans
 
 
-# the kernels' CUDA function names, as the profiler lists them: the serving
-# kernels, and kernels E and F in training (forward; bf16 and f32 backward)
+# the kernels' CUDA function names, as the profiler lists them (matched
+# without their arguments: F's forward takes bwd16::Src operands): the
+# serving kernels, and kernels E and F in training (forward; bf16 and f32
+# backward)
 KERNEL_FUNCS = {"rel_attention": ("rel_attention_",), "wn_stack": ("wn_stack_kernel",),
                 "mrf_stage": ("mrf_stage_kernel",), "mrf_stage_folded": ("mrf_folded_kernel",),
                 "wn_stack_train_fwd": ("fwd_layer<", "wf::"),
                 "wn_stack_train_bwd": ("wg::",),
-                "rel_attention_train_fwd": ("fwd_kernel<",),
+                "rel_attention_train_fwd": ("fwd16::", "fwd_kernel<"),
                 "rel_attention_train_bwd": ("bwd16::", "bwd_q_kernel<", "bwd_kv_kernel<")}
 
 
@@ -1014,7 +1063,7 @@ def profile(torch, label, fn, top, record=None):
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     totals = {}
     for name, func in KERNEL_FUNCS.items():
-        hits = [e for e in events if any(f in e.key for f in func)]
+        hits = [e for e in events if any(f in _op_name(e.key) for f in func)]
         totals[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
                         sum(e.count for e in hits))
     print(f"  kernel device time over {label}: " + ", ".join(
@@ -1365,13 +1414,23 @@ def main() -> int:
         print_e_bwd(r)
         print(json.dumps({"root": ROOT, "card": card_line(), **r}))
         return 0
+    if sys.argv[1:] == ["--f-fwd"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        by_t = {}
+        for T in F_BWD_T:
+            r = f_fwd_breakdown(torch, dev, T)
+            r.pop("grads")
+            print_f("fwd", T, r)
+            by_t[T] = r
+        print(json.dumps({"root": ROOT, "card": card_line(), "T": by_t}))
+        return 0
     if sys.argv[1:] == ["--f-bwd"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         by_t = {}
         for T in F_BWD_T:
             r = f_bwd_breakdown(torch, dev, T)
             r.pop("grads")
-            print_f_bwd(T, r)
+            print_f("bwd", T, r)
             by_t[T] = r
         print(json.dumps({"root": ROOT, "card": card_line(), "T": by_t}))
         return 0

@@ -14,7 +14,9 @@ launches.  Kernel D in f32 is held to 1e-4 of its output's peak (sums of
 up to 15 · 128 terms).  bf16 output is held to 2^-7 of its peak, one bf16
 ulp in the peak's binade.  The training kernels E and F, forward and every
 gradient, are held to 1e-4 of each tensor's peak in f32 and 2^-7 of it
-with bf16 operands (E's and F's bf16 backward on wgmma included).
+with bf16 operands (E's and F's bf16 kernels on wgmma included); F's bf16
+forward's lse also within 1e-3 absolute, since the backward rebuilds p
+from it.
 """
 
 import numpy as np
@@ -511,6 +513,69 @@ def test_rel_attention_train_bf16_operands_in_the_model_layout(device, T):
     refs = rel_attention_train.relative_self_attention_train_plain_bwd(dout.float(), *f, lse, 3,
                                                                        0.1, 4, True)
     _held(grads, refs, True)
+
+
+def _attn_inputs(device, B, H, T, d, layout, seed=7):
+    """q, k, v on f32 [B, H, T, d] tensors, or (``layout`` "model") bf16 [B,
+    T, H, d] projections seen as [B, H, T, d] with bf16 rel tables, as the
+    attention layer hands them over; keys padded by 0, 37 and 74 in turn."""
+    r = np.random.RandomState(seed)
+    lengths = np.array([T - 37 * (i % 3) for i in range(B)])
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    rel = [r.randn(1, 9, d) * d ** -0.5 for _ in range(2)]
+    if layout == "model":
+        qkv = [_cuda(device, r.randn(B, T, H, d), dtype=torch.bfloat16)[0].transpose(1, 2)
+               for _ in range(3)]
+        return (*qkv, *_cuda(device, *rel, dtype=torch.bfloat16), *_cuda(device, mask))
+    return tuple(_cuda(device, *(r.randn(B, H, T, d) for _ in range(3)), *rel, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["f32", "model"])
+@pytest.mark.parametrize("T", [77, 128, 640])
+def test_rel_attention_train_bf16_forward(device, T, layout):
+    """The bf16 forward on wgmma against its plain version on f32 copies of
+    the same operands: out and lse to 2^-7 of their peaks, lse also within
+    1e-3; two runs give the same bits."""
+    args = _attn_inputs(device, 3, 2, T, 96, layout)
+    out, lse = rel_attention_train._launch_fwd(*args, 11, 0.1, 4, True)
+    torch.cuda.synchronize()
+    ref = rel_attention_train.relative_self_attention_train_plain_fwd(
+        *(t.float() for t in args), 11, 0.1, 4, True)
+    _held((out, lse), ref, True)
+    torch.testing.assert_close(lse, ref[1], rtol=0, atol=1e-3)
+    again = rel_attention_train._launch_fwd(*args, 11, 0.1, 4, True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+def test_rel_attention_train_bf16_forward_is_one_library_call(device, monkeypatch):
+    """A bf16 forward is one call of the library, which launches the wgmma
+    kernel once; f32 operands take the CUDA-core kernel."""
+    from vispeech_tpu_torch.ops.kernels import _build
+
+    args = _attn_inputs(device, 2, 2, 200, 96, "model")
+    rel_attention_train._launch_fwd(*args, 3, 0.1, 4, True)
+    key = ("rel_attention_train", "rel_attn_train_fwd_bf16")
+    calls = []
+    fn = _build._FUNCS[key]
+    monkeypatch.setitem(_build._FUNCS, key, lambda *a: calls.append(a) or fn(*a))
+    names = {bf16: _device_kernels(lambda: rel_attention_train._launch_fwd(*args, 3, 0.1, 4,
+                                                                           bf16))
+             for bf16 in (True, False)}
+    assert len(calls) == 1
+    assert names[True].count("fwd16::attn_kernel") == 1 and "fwd_kernel<" not in names[True]
+    assert "fwd_kernel<96>" in names[False] and "fwd16::" not in names[False]
+
+
+@pytest.mark.cuda
+def test_rel_attention_train_bf16_forward_refuses_on_the_card(device):
+    """d ∉ {64, 96} raises on the card: no plain fallback."""
+    args = _attn_inputs(device, 1, 2, 40, 48, "model")
+    with pytest.raises(ValueError, match="d in"):
+        rel_attention_train.relative_self_attention_train(*args, 3, 0.1)
+    with pytest.raises(RuntimeError, match="bf16 forward kernel launch failed"):
+        rel_attention_train._launch_fwd(*args, 3, 0.1, 4, True)
 
 
 @pytest.mark.cuda

@@ -13,8 +13,8 @@
 //   pd = p · keep(t, j) / (1 − rate)
 //   out[t]   = Σ_j pd[t, j]·(v[j] + (|j−t| ≤ w ? rel_v[j−t+w] : 0))
 //
-//   fwd      one block per (batch·head, 32 query rows), keys in tiles of 32
-//            with an online softmax (kernel A's scheme): out and lse.
+//   fwd      (f32) one block per (batch·head, 32 query rows), keys in tiles
+//            of 32 with an online softmax (kernel A's scheme): out and lse.
 //   bwd_q    (f32) one block per (batch·head, 32 query rows): D = rowsum(dO ∘ O),
 //            q̂·rel_k and dO·rel_v per row (kept for bwd_kv), then over key
 //            tiles p = exp(s − lse), dp = (dO·v + band dO·rel_v)·keep/(1−r),
@@ -27,18 +27,20 @@
 // the mask does not depend on the tiling and the backward regenerates the
 // forward's mask bit for bit (the port's plain version computes the same).
 //
-// bf16 operands (the forward's BF16 = true, and the bf16 backward) round
-// every matmul operand to bf16 as the TPU kernel's bf16_compute does (q̂, k,
-// v, dO, rel tables in their products, p and ds before their products); the
-// softmax, lse and every accumulation stay f32.  The forward rounds the
-// online softmax's unnormalised weights, which agrees with rounding the
-// normalised ones to one bf16 rounding.
+// bf16 operands (the bf16 forward and backward) round every matmul operand
+// to bf16 as the TPU kernel's bf16_compute does (q̂, k, v, dO, rel tables in
+// their products, p and ds before their products); the softmax, lse and
+// every accumulation stay f32.  The bf16 forward rounds the online softmax's
+// unnormalised weights, which agrees with rounding the normalised ones to
+// one bf16 rounding.
 //
 // Bound: 4·T²·d flops forward and 10·T²·d backward per batch-head (five
-// T×T products) against ~T·d·4·6 bytes: compute-bound.  The forward and the
-// f32 backward (fwd, bwd_q, bwd_kv) run on f32 CUDA cores.  The bf16 backward
+// T×T products) against ~T·d·4·6 bytes: compute-bound.  The f32 forward and
+// backward (fwd, bwd_q, bwd_kv) run on f32 CUDA cores.  The bf16 backward
 // (namespace bwd16 below) runs its T×T products on wgmma bf16 with f32
-// accumulators, over bf16 copies of q̂, k, v and dO made once a call.
+// accumulators, over bf16 copies of q̂, k, v and dO made once a call; the
+// bf16 forward (namespace fwd16) on wgmma bf16 too, reading q, k and v in
+// place through their strides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,7 +105,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* __res
   }
 }
 
-template <int D, bool BF16>
+template <int D>
 __global__ void __launch_bounds__(NWARP * 32)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ rel_k,
@@ -128,13 +130,13 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* rk = rel_k + (size_t)(n_rel > 1 ? h : 0) * W * D;
   const float* rv = rel_v + (size_t)(n_rel > 1 ? h : 0) * W * D;
 
-  load_rows<D, BF16>(&qs[0][0], KS, q + base, q0, T, scale);
+  load_rows<D, false>(&qs[0][0], KS, q + base, q0, T, scale);
   for (int i = tid; i < W * D; i += blockDim.x) rvs[i / D][i % D] = rv[i];
   __syncthreads();
   for (int i = tid; i < BQ * W; i += blockDim.x) {
     const int r = i / W, w = i % W;
     float s = 0.f;
-    for (int c = 0; c < D; ++c) s += qs[r][c] * rnd<BF16>(rk[w * D + c]);
+    for (int c = 0; c < D; ++c) s += qs[r][c] * rk[w * D + c];
     qr[r][w] = s;
   }
 
@@ -154,8 +156,8 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK * D; i += blockDim.x) {
       const int j = i / D, c = i % D, key = k0 + j;
       const bool in = key < T;
-      ks[j][c] = in ? rnd<BF16>(k[base + (size_t)key * D + c]) : 0.f;
-      vs[j][c] = in ? rnd<BF16>(v[base + (size_t)key * D + c]) : 0.f;
+      ks[j][c] = in ? k[base + (size_t)key * D + c] : 0.f;
+      vs[j][c] = in ? v[base + (size_t)key * D + c] : 0.f;
     }
     if (tid < BK) km[tid] = (k0 + tid < T) ? mask[(size_t)b * T + k0 + tid] : 0.f;
     __syncthreads();
@@ -190,10 +192,10 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < DPL; ++c) vv[c] = vs[j][lane + 32 * c];
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
-        const float p = ps[warp][i][j], pr = rnd<BF16>(p);
+        const float p = ps[warp][i][j];
         const int delta = k0 + j - (q0 + warp * ROWS + i);
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[i][c] += pr * vv[c];
+        for (int c = 0; c < DPL; ++c) acc[i][c] += p * vv[c];
         if (delta >= -window && delta <= window) {
 #pragma unroll
           for (int c = 0; c < DPL; ++c) acc[i][c] += p * rvs[delta + window][lane + 32 * c];
@@ -1196,27 +1198,354 @@ int backward(const Srcs& src, const float* o, const float* lse, const float* mas
 
 }  // namespace bwd16
 
+// ------------------------------------------------------- bf16 forward, wgmma
+//
+// One launch a call.  A block owns FWD_ROWS query rows of one batch·head, 64
+// a warpgroup, and walks the key tiles of 64 keys:
+//   q̂ = bf16(q·q_scale) lands once in shared memory, in the [d/8][rows][8]
+//   layout of the backward's tiles, and each row's band record q̂·rel_k[w]
+//   comes from one more product (m64n16k16, rel_k in bf16, w ≥ 2w+1 zero);
+//   key and value tiles, two buffers, arrive by 16-byte cp.async from the
+//   strided bf16 rows (the step's [B, T, H, d] views are not contiguous, so
+//   no bulk copy), zeros past T: tile kt + 1 is in flight while tile kt is
+//   computed;
+//   S = q̂·Kᵀ (m64n64k16, both operands K-major); the band's q̂·rel_k only
+//   on the tile pairs it crosses; −1e4 for a masked key, −∞ past T; the
+//   online max (a row's 64 columns lie in one quad: two shuffles) rescales
+//   the accumulator and the thread's partial row sum; p = exp(s − m), times
+//   the keep factor, rounded to bf16 into A fragments; O += P·V
+//   (m64n{d}k16, V read MN-major);
+//   the band's scores go to shared memory (−∞ where the key is dropped), and
+//   the epilogue adds Σ_w exp(s_w − lse)·rel_v[w]/(1 − rate) in f32 once lse
+//   is known: no band sum is rescaled in the loop.
+// Epilogue: out = O/l plus the band term, lse = m + log l; rows past T are
+// not stored.  The bound is 4·T²·d bf16 flops per batch-head (9.8 µs at
+// T = 1024, B·H = 24); every block also reads each key and value tile of its
+// batch·head from L2 (151 MB at T = 1024, B·H = 24).  What bounds it is the
+// latency of a block's phases in turn (copies, products, the elementwise
+// softmax with its keep hash, the band), which only the other block on the
+// SM fills (239 registers a thread at d = 96): taking the products out
+// saves a quarter of the time (tools/ablate_rel_attention_train.py takes
+// each part out).  So a block keeps no more than its 64 rows, the band's
+// terms are compiled only into the tile pairs it crosses, and the band
+// record is a product, not a per-row loop.  ptxas keeps the wgmma
+// unserialized as in the backward: selects, a shuffle-uniform choice of a
+// banded tile pair, copies predicated inside their asm, an approximate
+// reciprocal and log.
+
+namespace fwd16 {
+
+using namespace bwd16;
+
+constexpr int FWD_WGS = 1;                   // warpgroups a block
+constexpr int FWD_ROWS = BT * FWD_WGS;       // query rows a block, 64 a warpgroup
+constexpr int FWD_THREADS = 128 * FWD_WGS;
+
+// a small table of the call, f32 or bf16: rel_k, rel_v or the key mask
+struct Tab {
+  const void* p;
+  int bf16;
+};
+__device__ __forceinline__ float tab_at(const Tab& t, size_t i) {
+  return t.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(t.p)[i])
+                : static_cast<const float*>(t.p)[i];
+}
+
+// 16 bytes global → shared by cp.async where pred holds, src_bytes of them
+// read and the rest zero; predicated inside the asm
+__device__ __forceinline__ void cp16_if(void* dst, const void* src, uint32_t src_bytes,
+                                        bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.async.cg.shared.global [%0], [%1], 16, %2;\n}\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes), "r"((int)pred) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, seen by wgmma (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 × 16, f32) += A (64 × 16) · B (16 × 16), bf16, both K-major in shared memory
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int D>
+struct Smem {
+  static constexpr int TILE = D / 8 * BT * 8;
+  __nv_bfloat16 q[D / 8 * FWD_ROWS * 8];  // q̂ of the block's rows, [d/8][rows][8]
+  __nv_bfloat16 kv[2][2][TILE];           // key and value tiles, two buffers
+  __nv_bfloat16 rk[D / 8 * 16 * 8];       // rel_k in bf16, [d/8][16][8], zero past 2w+1
+  float rv[MAXW][D];                      // rel_v, f32
+  float qr[FWD_ROWS][16];                 // each row's q̂·rel_k[w]
+  float bs[FWD_ROWS][BROW];               // the band's scores, −∞ where dropped or absent
+  float km[2][BT];                        // the key mask of each buffer's keys
+  float sink[FWD_THREADS];                // where the stores off the band go
+};
+
+static_assert(offsetof(Smem<96>, kv) % 16 == 0 && offsetof(Smem<96>, rk) % 16 == 0 &&
+              offsetof(Smem<64>, kv) % 16 == 0 && offsetof(Smem<64>, rk) % 16 == 0,
+              "wgmma tiles need 16-byte alignment");
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(FWD_THREADS)
+attn_kernel(Src q, Src k, Src v, Tab rel_k, Tab rel_v, Tab mask, float* __restrict__ out,
+            float* __restrict__ lse, int H, int T, int n_rel, int window, uint32_t seed,
+            uint32_t thresh, float inv_keep, float q_scale) {
+  constexpr int NC = D / 8, NA = D / 2, ROWS = FWD_ROWS, NTH = FWD_THREADS;
+  extern __shared__ __align__(128) unsigned char raw[];
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(raw);
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), wg = warp >> 2;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, t0 = blockIdx.x * ROWS;
+  const int qtile = blockIdx.x * FWD_WGS + wg;     // this warpgroup's 64-row tile
+  const int W = 2 * window + 1, nk = (T + BT - 1) / BT;
+
+  // key and value tile kt into buffer kt & 1, in 16-byte pieces: two chunks
+  // of a row to neighbouring threads (one 32-byte sector), zeros past T
+  const __nv_bfloat16* kv0[2] = {row_of(k, b, h, 0), row_of(v, b, h, 0)};
+  const long long kv_st[2] = {k.st, v.st};
+  auto load_kv = [&](int kt, bool pred) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int it = 0; it < BT * NC / NTH; ++it) {
+        const int i = tid + it * NTH, r = (i >> 1) % BT, c = (i / (2 * BT)) * 2 + (i & 1);
+        const int t = kt * BT + r;
+        cp16_if(sm.kv[kt & 1][x] + (c * BT + r) * 8, kv0[x] + min(t, T - 1) * kv_st[x] + 8 * c,
+                t < T ? 16u : 0u, pred);
+      }
+    cp_commit();
+  };
+  // the key mask of this thread's key of tile kt (threads 64 apart share one)
+  auto mask_of = [&](int kt) {
+    return tab_at(mask, (size_t)b * T + min(kt * BT + (tid & (BT - 1)), T - 1));
+  };
+  load_kv(0, true);
+
+  // q̂ of the block's rows, rounded once; the rel tables; the band's scores
+  // start at −∞
+#pragma unroll
+  for (int it = 0; it < ROWS * NC / NTH; ++it) {
+    const int i = tid + it * NTH, r = (i >> 1) % ROWS, c = (i / (2 * ROWS)) * 2 + (i & 1);
+    const int t = t0 + r;
+    float x[8];
+    unpack8(x, ldg8(row_of(q, b, h, min(t, T - 1)) + 8 * c));
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = t < T ? pack2(x[2 * e] * q_scale, x[2 * e + 1] * q_scale) : 0u;
+    *reinterpret_cast<uint4*>(sm.q + (c * ROWS + r) * 8) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  const size_t rel = (size_t)(n_rel > 1 ? h : 0) * W * D;
+  for (int i = tid; i < 16 * D; i += NTH) {
+    const int w = i / D, c = i - w * D;
+    const bool in = w < W;
+    sm.rk[((c >> 3) * 16 + w) * 8 + (c & 7)] =
+        __float2bfloat16_rn(in ? tab_at(rel_k, rel + i) : 0.f);
+    if (w < MAXW) sm.rv[w][c] = in ? tab_at(rel_v, rel + i) : 0.f;
+  }
+  for (int i = tid; i < ROWS * BROW; i += NTH) (&sm.bs[0][0])[i] = -INFINITY;
+  sm.km[0][tid & (BT - 1)] = mask_of(0);
+  fence_async_smem();
+  __syncthreads();
+
+  int rl[2];
+  float m_r[2], l_r[2];
+  uint32_t rk_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    rl[hr] = 16 * warp + g + 8 * hr;
+    m_r[hr] = -INFINITY;
+    l_r[hr] = 0.f;                 // this thread's share of the row sum
+    rk_r[hr] = row_key(seed, bh, t0 + rl[hr]);
+  }
+  const __nv_bfloat16* qw = sm.q + wg * BT * 8;   // this warpgroup's rows
+  // each row's q̂·rel_k[w]: bf16 operands, f32 sums
+  {
+    float qrr[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) qrr[i] = 0.f;
+    fence_acc(qrr);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_n16(qrr, smem_desc(qw + 2 * kc * ROWS * 8, ROWS * 16, 128),
+                smem_desc(sm.rk + 2 * kc * 16 * 8, 16 * 16, 128));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(qrr);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sm.qr[rl[(i >> 1) & 1]][8 * (i >> 2) + 2 * tq + (i & 1)] = qrr[i];
+  }
+  float o[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) o[i] = 0.f;
+  fence_acc(o);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    cp_wait_all();        // this thread's pieces of tile kt
+    fence_async_smem();
+    __syncthreads();      // every thread's pieces and tile kt's mask; tile kt − 1's buffer free
+    load_kv(kt + 1, kt + 1 < nk);
+    const float mk = mask_of(kt + 1);    // stored once this tile is done
+    const __nv_bfloat16* ks = sm.kv[buf][0];
+    const __nv_bfloat16* vs = sm.kv[buf][1];
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_acc(s);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_n64(s, smem_desc(qw + 2 * kc * ROWS * 8, ROWS * 16, 128),
+                smem_desc(ks + 2 * kc * BT * 8, BT * 16, 128));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+
+    uint32_t pf[4][4];
+    float corr[2];
+    const int k0 = kt * BT;
+    // the tile's scores, the online softmax, p's fragments; the band's terms
+    // and stores only on the tile pairs it crosses (a warp-uniform choice)
+    auto softmax = [&](auto tag) {
+      constexpr bool banded = decltype(tag)::value;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * i + 2 * hr + e, jl = 8 * i + 2 * tq + e, j = k0 + jl;
+            const int delta = j - (t0 + rl[hr]);
+            const bool in_band = banded && delta >= -window && delta <= window;
+            const int bi = min(max(delta + window, 0), MAXW - 1);
+            float sc = s[x] + (in_band ? sm.qr[rl[hr]][bi] : 0.f);
+            sc = sm.km[buf][jl] > 0.f ? sc : NEG_FILL;
+            s[x] = j < T ? sc : -INFINITY;
+          }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mt = m_r[hr];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          mt = fmaxf(mt, fmaxf(s[4 * i + 2 * hr], s[4 * i + 2 * hr + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        corr[hr] = __expf(m_r[hr] - mt);
+        m_r[hr] = mt;
+        l_r[hr] *= corr[hr];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float o2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * i + 2 * hr + e, j = k0 + 8 * i + 2 * tq + e;
+            const int delta = j - (t0 + rl[hr]);
+            const bool in_band = banded && delta >= -window && delta <= window;
+            const int bi = min(max(delta + window, 0), MAXW - 1);
+            const float p = __expf(s[x] - m_r[hr]);
+            l_r[hr] += p;
+            const float kf = keep_f<DROP>(rk_r[hr], (uint32_t)(j + 1) * K_COL, thresh, inv_keep);
+            if (banded)
+              *(in_band ? &sm.bs[rl[hr]][bi] : &sm.sink[tid]) = kf > 0.f ? s[x] : -INFINITY;
+            o2[e] = p * kf;
+          }
+          to_frag(pf, i, hr, o2[0], o2[1]);
+        }
+    };
+    if (__shfl_sync(0xffffffffu, abs(kt - qtile) <= 1, 0))
+      softmax(Banded<true>{});
+    else
+      softmax(Banded<false>{});
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * i + e] *= corr[e >> 1];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(o, pf[kk], smem_desc(vs + 16 * kk * 8, 128, BT * 16));
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(o);
+    sm.km[buf ^ 1][tid & (BT - 1)] = mk;
+  }
+  __syncthreads();        // the band's scores
+
+  // out = O/l + Σ_w p_w·rel_v[w] with the band's p_w = exp(s_w − lse)/(1 − rate)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_r[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lse_r = m_r[hr] + __logf(l), inv_l = __fdividef(1.f, l);
+    const int r = rl[hr], t = t0 + r;
+    float pb[MAXW];
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w) pb[w] = inv_keep * __expf(sm.bs[r][w] - lse_r);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = 8 * i + 2 * tq;
+      float v0 = o[4 * i + 2 * hr] * inv_l, v1 = o[4 * i + 2 * hr + 1] * inv_l;
+#pragma unroll
+      for (int w = 0; w < MAXW; ++w) {
+        v0 += pb[w] * sm.rv[w][c];
+        v1 += pb[w] * sm.rv[w][c + 1];
+      }
+      if (t < T)
+        *reinterpret_cast<float2*>(out + ((size_t)bh * T + t) * D + c) = make_float2(v0, v1);
+    }
+    if (t < T && tq == 0) lse[(size_t)bh * T + t] = lse_r;
+  }
+}
+
+template <int D, bool DROP>
+cudaError_t set_smem() {
+  return cudaFuncSetAttribute(attn_kernel<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(Smem<D>));
+}
+
+}  // namespace fwd16
+
 }  // namespace
 
 // q, k, v, out, dq, dk, dv, dout: [B, H, T, d]; rel_k, rel_v: [n_rel, 2w+1, d];
 // mask: [B, T]; lse, rowd: [B, H, T]; qrel, dorel: [B, H, T, 2w+1]; part_k,
 // part_v: [B·H, ceil(T/32), 2w+1, d].  All f32, contiguous.  d ∈ {64, 96},
 // w ≤ 4.  thresh = rate·2³² (0: no dropout), inv_keep = 1/(1 − rate).
-// rel_attn_train_bwd_q and _bwd_kv are the f32 backward; the bf16 backward
-// is rel_attn_train_bwd_bf16.  Every entry returns a cudaError_t as int.
+// rel_attn_train_fwd, _bwd_q and _bwd_kv are the f32 forward and backward;
+// the bf16 ones are rel_attn_train_fwd_bf16 and rel_attn_train_bwd_bf16.
+// Every entry returns a cudaError_t as int.
 extern "C" int rel_attn_train_tile() { return BQ; }
 
 extern "C" int rel_attn_train_fwd(const float* q, const float* k, const float* v,
                                   const float* rel_k, const float* rel_v, const float* mask,
                                   float* out, float* lse, int B, int H, int T, int d, int n_rel,
-                                  int window, int bf16, uint32_t seed, uint32_t thresh,
-                                  float rate, void* stream) {
+                                  int window, uint32_t seed, uint32_t thresh, float rate,
+                                  void* stream) {
   if (window > 4 || (d != 64 && d != 96)) return (int)cudaErrorInvalidValue;
   dim3 grid((T + BQ - 1) / BQ, B * H);
   const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = d == 96 ? (bf16 ? fwd_kernel<96, true> : fwd_kernel<96, false>)
-                        : (bf16 ? fwd_kernel<64, true> : fwd_kernel<64, false>);
+  auto kernel = d == 96 ? fwd_kernel<96> : fwd_kernel<64>;
   kernel<<<grid, NWARP * 32, 0, s>>>(q, k, v, rel_k, rel_v, mask, out, lse, H, T, n_rel, window,
                                      seed, thresh, inv, scale);
   return (int)cudaGetLastError();
@@ -1294,4 +1623,45 @@ extern "C" int rel_attn_train_bwd_bf16(const void* q, const void* k, const void*
              static_cast<bf*>(vh), static_cast<bf*>(doh), stat, band, kinfo, dq, dk, dv, part_k,
              part_v, B, H, T, n_rel, window, seed, thresh, inv, scale, q_scaled ? 1.f : scale,
              static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 forward on wgmma (namespace fwd16): one launch.
+//   q, k, v: [B, H, T, d], bf16, any strides whose rows start 16-byte
+//     aligned: strides[4·i .. 4·i + 2] are operand i's element strides of b,
+//     h and t (d's is 1; host memory).  q_scaled: q is already q̂ = q/√d.
+//   rel_k, rel_v [n_rel, 2w+1, d] and mask [B, T], contiguous: bit 0, 1 and 2
+//     of bf16_tabs say which of them is bf16, the others are f32.
+//   out [B, H, T, d], lse [B, H, T]: f32 out.
+extern "C" int rel_attn_train_fwd_bf16(const void* q, const void* k, const void* v,
+                                       const long long* strides, const void* rel_k,
+                                       const void* rel_v, const void* mask, int bf16_tabs,
+                                       float* out, float* lse, int B, int H, int T, int d,
+                                       int n_rel, int window, int q_scaled, uint32_t seed,
+                                       uint32_t thresh, float rate, void* stream) {
+  using namespace fwd16;
+  if (window > 4 || (d != 64 && d != 96)) return (int)cudaErrorInvalidValue;
+  // the kernels' shared-memory limit, set once per loaded library
+  static const cudaError_t ready = [] {
+    const cudaError_t errs[4] = {set_smem<64, false>(), set_smem<64, true>(),
+                                 set_smem<96, false>(), set_smem<96, true>()};
+    for (const cudaError_t e : errs)
+      if (e != cudaSuccess) return e;
+    return cudaSuccess;
+  }();
+  if (ready != cudaSuccess) return (int)ready;
+  const void* ptrs[3] = {q, k, v};
+  Src src[3];
+  for (int i = 0; i < 3; ++i)
+    src[i] = Src{ptrs[i], strides[4 * i], strides[4 * i + 1], strides[4 * i + 2]};
+  const Tab tk{rel_k, bf16_tabs & 1}, tv{rel_v, (bf16_tabs >> 1) & 1},
+      tm{mask, (bf16_tabs >> 2) & 1};
+  const float scale = 1.f / sqrtf((float)d), inv = 1.f / (1.f - rate);
+  const dim3 grid((T + FWD_ROWS - 1) / FWD_ROWS, B * H);
+  auto kernel = d == 96 ? (thresh ? attn_kernel<96, true> : attn_kernel<96, false>)
+                        : (thresh ? attn_kernel<64, true> : attn_kernel<64, false>);
+  const size_t smem = d == 96 ? sizeof(Smem<96>) : sizeof(Smem<64>);
+  kernel<<<grid, FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      src[0], src[1], src[2], tk, tv, tm, out, lse, H, T, n_rel, window, seed, thresh, inv,
+      q_scaled ? 1.f : scale);
+  return (int)cudaGetLastError();
 }

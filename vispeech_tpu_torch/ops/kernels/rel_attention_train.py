@@ -5,8 +5,17 @@ Replaces ``vispeech_tpu/ops/pallas/flash_attention_train.py::
 relative_self_attention_train`` (custom VJP; bodies ``_fwd_kernel`` and
 ``_bwd_kernel``) with ``csrc/rel_attention_train.cu``:
 
-* forward: kernel A's online softmax, plus the per-row logsumexp and the
-  dropout keep mask on the probabilities;
+* forward with bf16 operands (``bf16_compute``): one launch on wgmma bf16
+  (namespace ``fwd16``), which reads q, k and v as bf16 in place through
+  their strides (``_operand``; an f32 q goes in as q̂) and the rel tables
+  and key mask as f32 or bf16 (``_table``).  A block owns 64 query rows and
+  walks 64-key tiles with an online softmax (the row max rescales the
+  accumulator, p is rounded to bf16 before its rescale); the band's scores
+  are kept, and its rel_v term is added once lse is known.
+  ``relative_self_attention_train_tiled_fwd`` is its data flow in plain
+  PyTorch, which the CPU tests hold to the plain forward;
+* forward in f32: kernel A's online softmax on CUDA cores, plus the per-row
+  logsumexp and the dropout keep mask on the probabilities;
 * backward with bf16 operands (``bf16_compute``): one library call of two
   launches on wgmma bf16.  It reads q, k, v and dO as bf16, the model's
   type (``_operand`` rounds an f32 one; an f32 q goes in as q̂, rounded
@@ -31,9 +40,9 @@ differ, so against JAX only rate 0 compares.
 
 Key positions are masked with −1e4, as kernel A does, so wholly masked rows
 stay finite and padded key columns get exactly zero dk and dv.  Compute-
-bound (4·T²·d flops forward, 2.5× that backward, per batch-head).  The
-forward and the f32 backward run on CUDA cores.  The drel partial sums are
-added in a fixed order: no atomics, the same bits from run to run.
+bound (4·T²·d flops forward, 2.5× that backward, per batch-head).  The f32
+forward and backward run on CUDA cores.  The drel partial sums are added in
+a fixed order: no atomics, the same bits from run to run.
 """
 
 from __future__ import annotations
@@ -189,6 +198,80 @@ def _check(q, k, v, rel_k, rel_v, key_mask, window):
     if q.device.type != "cpu" and (d not in (64, 96) or window > 4):
         raise ValueError(f"rel_attention_train kernel takes d in (64, 96), window <= 4; "
                          f"got d={d}, window={window}")
+
+
+FWD_ROWS = 64      # query rows a block of the bf16 forward (fwd16::FWD_ROWS)
+FWD_KEYS = 64      # keys a tile of the bf16 forward (bwd16::BT)
+
+
+def relative_self_attention_train_tiled_fwd(q, k, v, rel_k, rel_v, key_mask, seed: int,
+                                            rate: float, window: int = 4, kv=None):
+    """The bf16 forward's data flow in plain PyTorch (CPU): q̂ = bf16(q·scale)
+    in 64-row tiles with each row's band record q̂·rel_k (bf16 operands); per
+    tile, over 64-key tiles of bf16 k and v (``kv``: such copies [B·H, Tp, d],
+    zero past T), S with the band on the tile pairs it crosses, −1e4 for a
+    masked key and −∞ past T, the online max rescaling the accumulator and
+    the row sum, p = exp(s − m) times the keep factor rounded to bf16 before
+    its rescale, O += P·V, and the band's scores kept (−∞ where dropped);
+    then out = O/l + Σ_w exp(s_w − lse)·rel_v[w]/(1 − rate), lse = m + log l.
+    → (out [B, H, T, d], lse [B, H, T])."""
+    B, H, T, d = q.shape
+    BH, W, n_rel = B * H, 2 * window + 1, rel_k.shape[0]
+    Tp, nt = bwd_rows(T)
+    bt = FWD_KEYS
+    rb = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    pad = lambda x: torch.cat((x, x.new_zeros(BH, Tp - T, d)), 1)  # noqa: E731
+    qh = pad(rb(q.float().reshape(BH, T, d) * (1.0 / math.sqrt(d))))
+    kh, vh = kv if kv is not None else (pad(rb(t.float().reshape(BH, T, d))) for t in (k, v))
+    per_bh = lambda t: t.float().expand(H, W, d).repeat(B, 1, 1) if n_rel == 1 \
+        else t.float().repeat(B, 1, 1)  # noqa: E731
+    rk, rv = rb(per_bh(rel_k)), per_bh(rel_v)                  # [BH, W, d]
+    kin = key_mask.float().repeat_interleave(H, 0)             # [BH, T]
+    kin = torch.cat((kin, kin.new_zeros(BH, Tp - T)), 1)
+    thresh, inv = keep_threshold(rate), 1.0 / (1.0 - rate)
+    a = _fmix32((seed & _MASK32) ^ _mul32(torch.arange(BH, dtype=torch.int64) + 1, _K_BH))
+    ar = torch.arange(bt)
+    out = torch.zeros(BH, Tp, d)
+    lse = torch.zeros(BH, Tp)
+    for qt in range(nt):
+        rows = slice(qt * FWD_ROWS, (qt + 1) * FWD_ROWS)
+        t = (qt * FWD_ROWS + ar)[:, None]
+        rkey = _fmix32(a[:, None] ^ _mul32(t[:, 0] + 1, _K_ROW)[None])[:, :, None]
+        qr = torch.einsum("brd,bwd->brw", qh[:, rows], rk)
+        m = torch.full((BH, FWD_ROWS, 1), -math.inf)
+        l = torch.zeros(BH, FWD_ROWS, 1)
+        acc = torch.zeros(BH, FWD_ROWS, d)
+        bs = torch.full((BH, FWD_ROWS, W), -math.inf)
+        for kt in range(nt):
+            cols = slice(kt * bt, (kt + 1) * bt)
+            j = (kt * bt + ar)[None]
+            s = qh[:, rows] @ kh[:, cols].transpose(1, 2)
+            delta = j - t
+            in_band = (delta.abs() <= window) & (abs(kt - qt) <= 1)
+            bi = (delta + window).clamp(0, W - 1).expand(BH, -1, -1)
+            s = s + torch.where(in_band, torch.gather(qr, 2, bi), 0.0)
+            s = torch.where(kin[:, None, cols] > 0, s, torch.full_like(s, NEG_FILL))
+            s = torch.where(j < T, s, torch.full_like(s, -math.inf))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            m = m_new
+            kf = torch.ones_like(s)
+            if thresh:
+                h = _fmix32(rkey ^ _mul32(j + 1, _K_COL))
+                kf = torch.where(h >= thresh, torch.full_like(s, inv), torch.zeros_like(s))
+            acc = acc * corr + rb(p * kf) @ vh[:, cols]
+            kept = torch.where(kf > 0, s, torch.full_like(s, -math.inf))
+            for w in range(W):                  # a row's key at δ = w − window, if here
+                at = in_band & (bi == w)
+                bs[..., w] = torch.where(at.any(-1), torch.where(at, kept, 0.0).sum(-1),
+                                         bs[..., w])
+        lse_t = m + torch.log(l)
+        band = inv * torch.exp(bs - lse_t)
+        out[:, rows] = acc / l + torch.einsum("brw,bwd->brd", band, rv)
+        lse[:, rows] = lse_t[..., 0]
+    return out[:, :T].reshape(B, H, T, d), lse[:, :T].reshape(B, H, T)
 
 
 BWD_TILE = 64      # rows, or keys, of a bf16 backward tile (bwd16::BT)
@@ -388,17 +471,68 @@ def _operand(t):
     return t
 
 
-def _launch_fwd(q, k, v, rel_k, rel_v, key_mask, seed, rate, window, bf16):
-    global fwd_launches
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _table(t):
+    """rel_k, rel_v or key_mask as the bf16 forward reads it: f32 or bf16
+    (another type is made f32), contiguous."""
+    t = t.detach()
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    return t.contiguous()
+
+
+_FWD_BF16_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] * 7 + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                                          ctypes.c_void_p])
+
+
+def _launch_fwd_bf16(q, k, v, rel_k, rel_v, key_mask, seed, rate, window):
+    """One launch of the wgmma forward on q, k and v as ``_operand`` hands
+    them over (the model's bf16 views, no copy); out and lse share one
+    allocation."""
+    B, H, T, d = q.shape
+    fn = _build.function("rel_attention_train", "rel_attn_train_fwd_bf16", _FWD_BF16_ARGS)
+    # an f32 q goes in as q̂ = bf16(q·scale), rounded once as the plain version rounds it
+    q_scaled = q.dtype != torch.bfloat16
+    if q_scaled:
+        q = q.detach().float() * (1.0 / math.sqrt(d))
+    ops = [_operand(t) for t in (q, k, v)]
+    strides = (ctypes.c_longlong * 12)(*(x for t in ops for x in (*t.stride()[:3], 0)))
+    tabs = [_table(t) for t in (rel_k, rel_v, key_mask)]
+    flags = sum(1 << i for i, t in enumerate(tabs) if t.dtype == torch.bfloat16)
+    n = B * H * T
+    res = torch.empty(n * (d + 1), device=q.device)
+    out, lse = res[:n * d].view(B, H, T, d), res[n * d:].view(B, H, T)
+    status = fn(*(t.data_ptr() for t in ops), ctypes.addressof(strides),
+                *(t.data_ptr() for t in tabs), flags, out.data_ptr(), lse.data_ptr(), B, H, T,
+                d, rel_k.shape[0], window, int(q_scaled), seed & 0xFFFFFFFF,
+                keep_threshold(rate), rate, _stream(q.device))
+    _build.check(status, "rel_attention_train bf16 forward")
+    return out, lse
+
+
+def _launch_fwd_f32(q, k, v, rel_k, rel_v, key_mask, seed, rate, window):
     B, H, T, d = q.shape
     args = [_f32(t) for t in (q, k, v, rel_k, rel_v, key_mask)]
     out = torch.empty_like(args[0])
     lse = torch.empty(B, H, T, device=q.device)
-    fn = _fn(_build.load("rel_attention_train"), "rel_attn_train_fwd", 8, 7)
+    fn = _fn(_build.load("rel_attention_train"), "rel_attn_train_fwd", 8, 6)
     status = fn(*(t.data_ptr() for t in args), out.data_ptr(), lse.data_ptr(), B, H, T, d,
-                rel_k.shape[0], window, int(bf16), seed & 0xFFFFFFFF, keep_threshold(rate),
-                rate, torch.cuda.current_stream(q.device).cuda_stream)
+                rel_k.shape[0], window, seed & 0xFFFFFFFF, keep_threshold(rate), rate,
+                _stream(q.device))
     _build.check(status, "rel_attention_train forward")
+    return out, lse
+
+
+def _launch_fwd(q, k, v, rel_k, rel_v, key_mask, seed, rate, window, bf16):
+    """The forward on the card: with ``bf16`` the wgmma kernel, else the f32
+    CUDA-core kernel.  → (out [B, H, T, d], lse [B, H, T]), f32."""
+    global fwd_launches
+    launch = _launch_fwd_bf16 if bf16 else _launch_fwd_f32
+    out, lse = launch(q, k, v, rel_k, rel_v, key_mask, seed, rate, window)
     fwd_launches += 1
     return out, lse
 
