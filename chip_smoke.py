@@ -54,6 +54,22 @@ and check them.
    of frames × hop samples, a profile, and the f32 conversion with the
    kernels on the card against the plain f32 conversion on the CPU with
    the posterior noise injected.
+3e. HTTP serving: the same seeded weights saved as a port ``ckpt_1.pt``
+   and a reference-style ``G_1.pth`` (``module.`` prefix, dead keys), an
+   engine from each through ``TTSEngine.from_checkpoint`` (state dicts
+   equal), the first behind the port's server (``infer/server.py``) on
+   port 0 with the coalescer (20 ms window, max_batch 16).  From client
+   threads, with the launch counters reset: the batch's 8 texts at once
+   (valid 44.1 kHz WAV, frames × hop samples, at least one coalesced group
+   of 2 or more), the short request with seed=5 amid 4 unseeded ones and
+   alone (within 1 LSB of ``engine.synthesize(seed=5)``) and at sr=22050,
+   the edited request's arrays by ``POST /tts``, ``/tts.json`` of the long
+   text scaled into the 1400-frame bucket, ``POST /vc`` of the long
+   request's 1400 frames, and a request over max_phonemes amid 3 good ones
+   (it alone fails).  A, B, C and D must launch over HTTP, E and F not.
+   Prints each request's wall time over HTTP beside the same request
+   straight through the engine, and the 8 requests' audio-seconds per
+   second.
 4. Writes a synthetic corpus (44.1 kHz, 24 utterances of 512-1024 frames)
    to a temporary directory and trains at the full width of
    ``configs/config.json`` (batch 12, bf16 ``tail_f32``): a warm-up step
@@ -64,7 +80,8 @@ and check them.
 4b. One f32 train step at reduced depth and batch with the kernels on the
    card against the plain versions on the host CPU, within 1e-4 relative,
    and a control step with the bf16 stages on that must miss that limit.
-5. Prints the per-kernel JSON line, the card's name and power limit, and
+5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d and
+   3e), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
@@ -102,6 +119,11 @@ prints F's bf16 backward at B = 12, H = 2, d = 96, rate 0.1 with padded
 keys, at T = 1024, 640 and 128: per T its time a call and its device time
 by op (each kernel, the wrapper's own ops), as one JSON line last, for the
 checkout this file sits in.
+
+    python3 chip_smoke.py --http
+
+runs phase 3e alone (the kernels built first) and prints its launch
+counts as one JSON line last.
 
     python3 chip_smoke.py --kernel-times
 
@@ -913,24 +935,20 @@ def pinyin_text(n_syllables: int, offset: int = 0) -> str:
     return "[P]" + " ".join(syl[(offset + i) % len(syl)] for i in range(n_syllables)) + "[P]"
 
 
-def serve(torch, dev, cfg, state_dict):
-    """Phase 3: the engine at full width; returns the engine, the launch
-    counts, the counts the path must make, and the requests."""
-    import numpy as np
+def serving_requests(torch, cfg):
+    """Phase 3's requests, as (label, ``synthesize`` kwargs, kernel A
+    launches of the request): short with predicted durations, long with
+    explicit durations filling the 1400-frame bucket, edited with pitch and
+    energy arrays; and the 8 texts of its batch."""
+    from vispeech_tpu_torch.text import text_to_phones
 
-    from vispeech_tpu_torch.infer.batching import plan_batches
-    from vispeech_tpu_torch.infer.pipeline import TTSEngine
-    from vispeech_tpu_torch.ops import kernels
-
-    engine = TTSEngine(cfg, state_dict, device=dev.type, transfer_int16=True)
-    hop, sr = cfg.data.hop_length, cfg.data.sampling_rate
     n_attn = cfg.model.n_layers          # TextEncoder / FramePriorNet layers
     n_pitch = 6                          # PitchPredictor layers
     long_text = pinyin_text(35)
-    n_long = len(engine.phonemes(long_text))
+    n_long = len(text_to_phones(long_text))
     long_dur = [1400 // n_long + (i < 1400 % n_long) for i in range(n_long)]
     pe_text = pinyin_text(12, 5)
-    n_pe = len(engine.phonemes(pe_text))
+    n_pe = len(text_to_phones(pe_text))
     r = torch.Generator().manual_seed(SEED)
     requests = [
         ("predicted", dict(text=pinyin_text(10), speaker=3, seed=1),
@@ -945,6 +963,22 @@ def serve(torch, dev, cfg, state_dict):
          n_attn + n_attn + n_attn),
     ]
     batch_texts = [pinyin_text(6 + 5 * i, i) for i in range(8)]
+    return requests, batch_texts
+
+
+def serve(torch, dev, cfg, state_dict):
+    """Phase 3: the engine at full width; returns the engine, the launch
+    counts, the counts the path must make, and the requests."""
+    import numpy as np
+
+    from vispeech_tpu_torch.infer.batching import plan_batches
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.ops import kernels
+
+    engine = TTSEngine(cfg, state_dict, device=dev.type, transfer_int16=True)
+    hop, sr = cfg.data.hop_length, cfg.data.sampling_rate
+    n_attn, n_pitch = cfg.model.n_layers, 6
+    requests, batch_texts = serving_requests(torch, cfg)
 
     def run():
         results, latency = [], []
@@ -1164,6 +1198,340 @@ def voice_conversion_phase(torch, dev, cfg, state_dict, engine, wav):
     return counts
 
 
+HTTP_WARM_PASSES = 4     # timed passes of phase 3e after the one that meets the shapes
+
+
+def http_request(url, body=None, ctype="application/json"):
+    """One request to the server → (status, content type, body, wall s); an
+    error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST",
+                                 headers={} if body is None else {"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, kind, data = r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        status, kind, data = e.code, e.headers["Content-Type"], e.read()
+    return status, kind, data, time.perf_counter() - t0
+
+
+def concurrently(calls):
+    """Each zero-argument call on a client thread of its own, all started
+    together → (their results in order, wall s until the last returned)."""
+    import threading
+
+    results = [None] * len(calls)
+
+    def run(i):
+        results[i] = calls[i]()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(calls))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if any(t.is_alive() for t in threads) or None in results:
+        raise AssertionError("an HTTP client thread did not finish")
+    return results, time.perf_counter() - t0
+
+
+def wav_pcm(label, answer, sr):
+    """The int16 samples of a 200 answer holding 16-bit mono PCM WAV at
+    ``sr``; raises otherwise."""
+    import struct
+
+    import numpy as np
+
+    status, kind, body, _ = answer
+    if status != 200 or kind != "audio/wav" or body[:4] != b"RIFF" or body[8:12] != b"WAVE":
+        raise AssertionError(f"{label}: HTTP {status} {kind} {body[:80]!r}")
+    fmt = struct.unpack("<IHHIIHH", body[16:36])
+    n = struct.unpack("<I", body[40:44])[0]
+    if fmt != (16, 1, 1, sr, 2 * sr, 2, 16) or len(body) != 44 + n:
+        raise AssertionError(f"{label}: WAV header {fmt}, {n} data bytes of {len(body) - 44}")
+    return np.frombuffer(body[44:], "<i2")
+
+
+def http_phase(torch, dev, cfg, state_dict, requests, batch_texts):
+    """Phase 3e: the port's HTTP server on the card.  The seeded weights go
+    to a port ``ckpt_1.pt`` and a reference-style ``G_1.pth`` (``module.``
+    prefix, dead keys); an engine from each through
+    ``TTSEngine.from_checkpoint``, their state dicts equal; the first serves
+    on port 0 with the coalescer (20 ms window, max_batch 16).  Over HTTP,
+    from client threads, with the launch counters reset, twice (the
+    server's threads meet the shapes in the first pass): the 8 batch texts
+    at once; the short request with seed=5 amid 4 unseeded ones, alone, and
+    at sr=22050; the edited request's pitch and energy arrays by POST;
+    ``/tts.json`` of the long text, scaled into the 1400-frame bucket; the
+    long request's audio through ``POST /vc``; a request over max_phonemes
+    amid 3 good ones.  Then each request once more straight through the
+    engine, timed beside its HTTP wall time; the short request and VC also
+    straight through the engine on a thread of their own; and the short
+    request and the edited one through a serial-mutex server.  → the
+    launch counts over HTTP."""
+    import json as _json
+    import statistics
+    import threading
+    from urllib.parse import urlencode
+
+    import numpy as np
+
+    from vispeech_tpu_torch.dsp.resample import resample
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.infer.server import make_server, wav_bytes
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.utils.checkpoint import AsyncCheckpointer
+
+    hop, sr = cfg.data.hop_length, cfg.data.sampling_rate
+    hidden = cfg.model.hidden_channels
+    root = tempfile.mkdtemp(prefix="vispeech_http_")
+    try:
+        port_dir, ref_dir = os.path.join(root, "port"), os.path.join(root, "reference")
+        ckpt = AsyncCheckpointer()
+        ckpt.save(port_dir, {"step": 1, "model_g": state_dict}, 1)
+        ckpt.wait()
+        dead = {"enc_p.proj.weight": torch.zeros(2 * cfg.model.inter_channels, hidden, 1),
+                "frame_prior_net.emb.weight": torch.zeros(121, hidden),
+                "energy_predictor.predictor.proj.weight": torch.zeros(hidden, 1)}
+        os.makedirs(ref_dir)
+        torch.save({"model": {"module." + k: v for k, v in {**state_dict, **dead}.items()},
+                    "iteration": 1}, os.path.join(ref_dir, "G_1.pth"))
+        config_path = os.path.join(ROOT, "configs", "config.json")
+        t0 = time.perf_counter()
+        engine = TTSEngine.from_checkpoint(config_path, port_dir, device=dev.type,
+                                           transfer_int16=True)
+        t1 = time.perf_counter()
+        reference = TTSEngine.from_checkpoint(config_path, ref_dir, device=dev.type,
+                                              transfer_int16=True)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = engine.model.state_dict(), reference.model.state_dict()
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the ckpt_1.pt and G_1.pth engines' state dicts differ")
+    print(f"http: engines from ckpt_1.pt ({t1 - t0:.2f} s) and G_1.pth ({t2 - t1:.2f} s), "
+          f"{len(a)} tensors equal")
+    del a, b, reference
+
+    short_kw, long_kw, edit_kw = (dict(kw) for _, kw, _ in requests)
+    short_q = {"text": short_kw["text"], "speaker": short_kw["speaker"], "seed": 5}
+    long_text, n_long = long_kw["text"], len(long_kw["duration_control"])
+    big_text = pinyin_text(300)
+    if len(engine.phonemes(big_text)) <= engine.max_phonemes:
+        raise AssertionError("the oversized request is not over max_phonemes")
+    edit_body = _json.dumps({"text": edit_kw["text"], "speaker": edit_kw["speaker"],
+                             "seed": edit_kw["seed"],
+                             "pitch": [float(x) for x in edit_kw["pitch_control"]],
+                             "energy": [float(x) for x in edit_kw["energy_control"]]}).encode()
+    # the engine meets every shape on this thread first: cuDNN plans, the
+    # kernels' weights; the resampler's and the WAV reader's imports
+    direct_batch = engine.synthesize_batch(texts=batch_texts, speakers=list(range(8)))
+    frames8 = [int(o["duration"].sum()) for o in direct_batch]
+    long_pcm = engine.synthesize(**long_kw)["audio_int16"]
+    vc_body = wav_bytes(long_pcm, sr)
+    vc_wav = long_pcm.astype(np.float32) / 32767.0
+    engine.voice_conversion(vc_wav, 7, 99)
+    engine.synthesize(**edit_kw)
+    resample(engine.synthesize(**short_q)["audio"], sr, 22050)
+    from scipy.io import wavfile  # noqa: F401
+    torch.cuda.synchronize()
+
+    def serve_on(window_ms):
+        httpd, coalescer = make_server(engine, "127.0.0.1", 0, batch_window_ms=window_ms,
+                                       max_batch=16)
+        threading.Thread(target=httpd.serve_forever, args=(0.05,), daemon=True).start()
+        return httpd, coalescer, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def stop(httpd, coalescer):
+        httpd.shutdown()
+        httpd.server_close()
+        if coalescer is not None:
+            coalescer.close()
+
+    def get(url, path, **q):
+        return lambda: http_request(f"{url}{path}?{urlencode(q)}")
+
+    def one_pass(url, coalescer):
+        """Every request of the phase once → {name: answer or answers}."""
+        out = {}
+        n_groups = len(coalescer.batch_sizes)
+        out["batch8"], out["batch8_s"] = concurrently(
+            [get(url, "/tts", text=t, speaker=i) for i, t in enumerate(batch_texts)])
+        out["groups8"] = coalescer.batch_sizes[n_groups:]
+        out["amid"], _ = concurrently([get(url, "/tts", **short_q)] + [
+            get(url, "/tts", text=t, speaker=i) for i, t in enumerate(batch_texts[:4])])
+        out["alone"] = get(url, "/tts", **short_q)()
+        out["half"] = get(url, "/tts", sr=22050, **short_q)()
+        out["edited"] = http_request(f"{url}/tts", edit_body)
+        out["plain_json"] = get(url, "/tts.json", text=long_text, speaker=17)()
+        predicted = sum(_json.loads(out["plain_json"][2])["duration"]) \
+            if out["plain_json"][0] == 200 else 1
+        # ceil(d·s) per phoneme: s·Σd ≤ frames < s·Σd + n_long, inside (1280, 1400]
+        out["scale"] = 1300.0 / predicted
+        out["long_json"] = get(url, "/tts.json", text=long_text, speaker=17,
+                               duration=out["scale"])()
+        out["vc"] = http_request(f"{url}/vc?src=7&tgt=99", vc_body, "audio/wav")
+        out["mixed"], _ = concurrently([get(url, "/tts", text=t, speaker=i)
+                                        for i, t in enumerate(batch_texts[:2])]
+                                       + [get(url, "/tts", text=big_text)]
+                                       + [get(url, "/tts", text=batch_texts[2], speaker=2)])
+        return out
+
+    httpd, coalescer, url = serve_on(20.0)
+    try:
+        kernels.reset_launches()
+        # pass 1 meets the shapes on the server's threads; the rest are timed warm
+        passes = [one_pass(url, coalescer) for _ in range(1 + HTTP_WARM_PASSES)]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        stop(httpd, coalescer)
+    served = [(k, counts[k]) for k in ("rel_attention", "wn_stack", "mrf_stage",
+                                       "mrf_stage_folded")]
+    idle = {k: v for k, v in counts.items() if "_train_" in k and v}
+    print(f"http: launches over HTTP ({len(passes)} passes) {counts}")
+    if any(n == 0 for _, n in served) or idle:
+        raise AssertionError(f"over HTTP, A-D launches {served}, E/F launches {idle}")
+    if not any(g >= 2 for g in coalescer.batch_sizes):
+        raise AssertionError(f"no coalesced group of 2 or more: {coalescer.batch_sizes}")
+
+    def timed(fn, reps=HTTP_WARM_PASSES):
+        """(the last result, the wall s of each of ``reps`` calls)."""
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            walls.append(time.perf_counter() - t0)
+        return out, walls
+
+    scale = passes[-1]["scale"]
+    direct = {"batch8": timed(lambda: engine.synthesize_batch(
+        texts=batch_texts, speakers=list(range(8))))[1]}
+    short_out, direct["short"] = timed(lambda: engine.synthesize(**short_q))
+    direct["half"] = timed(lambda: resample(engine.synthesize(**short_q)["audio"], sr,
+                                            22050))[1]
+    edit_out, direct["edited"] = timed(lambda: engine.synthesize(**edit_kw))
+    direct["long_json"] = timed(lambda: engine.synthesize(
+        text=long_text, speaker=17, duration_control=scale))[1]
+    direct["vc"] = timed(lambda: engine.voice_conversion(vc_wav, 7, 99))[1]
+
+    def lsb(label, answer):
+        pcm, ref = wav_pcm(label, answer, sr), short_out["audio_int16"]
+        return int(np.abs(pcm.astype(np.int32) - ref).max()) if len(pcm) == len(ref) else None
+
+    worst = 0
+    for n, out in enumerate(passes, 1):
+        audio_s = 0.0
+        for i, ans in enumerate(out["batch8"]):
+            pcm = wav_pcm(f"pass {n}: batch text {i}", ans, sr)
+            if len(pcm) != frames8[i] * hop:
+                raise AssertionError(f"pass {n}: batch text {i}: {len(pcm)} samples for "
+                                     f"{frames8[i]} frames")
+            audio_s += len(pcm) / sr
+        out["audio_s"] = audio_s
+        for i, ans in enumerate(out["amid"][1:]):
+            wav_pcm(f"pass {n}: unseeded {i} beside seed=5", ans, sr)
+        amid, alone = lsb(f"pass {n}: seed=5 amid", out["amid"][0]), \
+            lsb(f"pass {n}: seed=5 alone", out["alone"])
+        if amid is None or amid > 1 or alone is None or alone > 1:
+            raise AssertionError(f"pass {n}: seeded PCM differs from the direct call: "
+                                 f"{amid}, {alone} LSB")
+        worst = max(worst, amid, alone)
+        n22 = len(wav_pcm(f"pass {n}: seed=5 at sr=22050", out["half"], 22050))
+        if abs(n22 - len(short_out["audio_int16"]) * 22050 / sr) > 2:  # half at 44.1 kHz
+            raise AssertionError(f"pass {n}: sr=22050: {n22} samples")
+        pcm = wav_pcm(f"pass {n}: POST edited", out["edited"], sr)
+        if len(pcm) != len(edit_out["audio_int16"]):
+            raise AssertionError(f"pass {n}: POST edited: {len(pcm)} samples, direct "
+                                 f"{len(edit_out['audio_int16'])}")
+        for label in ("plain_json", "long_json"):
+            if out[label][0] != 200:
+                raise AssertionError(f"pass {n}: {label}: HTTP {out[label][0]} "
+                                     f"{out[label][2][:200]!r}")
+        body = _json.loads(out["long_json"][2])
+        out["frames"] = frames = int(sum(body["duration"]))
+        if not (len(body["phones"]) == len(body["duration"]) == len(body["f0"])
+                == len(body["energy"]) == n_long) or not 1280 < frames <= 1400 \
+                or body["n_samples"] != frames * hop \
+                or not np.isfinite(body["f0"] + body["energy"]).all():
+            raise AssertionError(f"pass {n}: /tts.json long: {len(body['phones'])} phones, "
+                                 f"{frames} frames, {body['n_samples']} samples")
+        if len(wav_pcm(f"pass {n}: POST /vc", out["vc"], sr)) != 1400 * hop:
+            raise AssertionError(f"pass {n}: POST /vc is not 1400 frames")
+        statuses = [ans[0] for ans in out["mixed"]]
+        error = out["mixed"][2][2][:200]
+        if statuses[:2] + statuses[3:] != [200] * 3 or statuses[2] < 400 \
+                or b"too many phonemes" not in error:
+            raise AssertionError(f"pass {n}: the oversized request did not fail alone: "
+                                 f"{statuses} {error!r}")
+        for i in (0, 1, 3):
+            wav_pcm(f"pass {n}: good {i} beside the oversized", out["mixed"][i], sr)
+    print(f"http: seed=5 amid 4 unseeded and alone vs engine.synthesize(seed=5), every pass: "
+          f"{len(short_out['audio_int16'])} samples, max diff {worst} LSB (limit 1)")
+    print(f"http: oversized amid 3 good ones, every pass: statuses {statuses}, error {error!r}")
+
+    # the same calls straight through the engine on threads that never met
+    # their shapes (the server's handler threads are such threads)
+    fresh = {name: [concurrently([lambda: timed(fn, 1)[1][0]])[0][0] for _ in range(3)]
+             for name, fn in (("short", lambda: engine.synthesize(**short_q)),
+                              ("vc", lambda: engine.voice_conversion(vc_wav, 7, 99)))}
+    # the serial-mutex server (batch window 0): its worker thread meets the
+    # shapes in the first call of each request
+    httpd, _, url = serve_on(0.0)
+    try:
+        mutex = {"short": [get(url, "/tts", **short_q)() for _ in range(1 + HTTP_WARM_PASSES)],
+                 "edited": [http_request(f"{url}/tts", edit_body)
+                            for _ in range(1 + HTTP_WARM_PASSES)]}
+    finally:
+        stop(httpd, None)
+    for name, answers in mutex.items():
+        for ans in answers:
+            wav_pcm(f"mutex server: {name}", ans, sr)
+
+    def ms(walls):
+        return f"{1e3 * statistics.median(walls):.2f} (min {1e3 * min(walls):.2f})"
+
+    warm = passes[1:]
+    rows = [("the 8 at once (each answer's wall: the slowest)",
+             [p["batch8_s"] for p in passes], "batch8"),
+             ("seed=5 amid 4 unseeded", [p["amid"][0][3] for p in passes], "short"),
+             ("seed=5 alone", [p["alone"][3] for p in passes], "short"),
+             ("seed=5 at sr=22050 (+ resample)", [p["half"][3] for p in passes], "half"),
+             ("POST /tts edited (pitch, energy arrays)", [p["edited"][3] for p in passes],
+              "edited"),
+             (f"/tts.json long, {passes[-1]['frames']} frames",
+              [p["long_json"][3] for p in passes], "long_json"),
+             ("POST /vc, 1400 frames", [p["vc"][3] for p in passes], "vc"),
+             ("mutex server: seed=5 alone", [a[3] for a in mutex["short"]], "short"),
+             ("mutex server: POST /tts edited", [a[3] for a in mutex["edited"]], "edited")]
+    print(card_line())
+    print(f"http rows: wall ms over HTTP of the first call (the server's thread meets the "
+          f"shapes), then the median (min) of {len(warm)} warm calls; the same request "
+          f"straight through the engine on this thread, median (min) of {HTTP_WARM_PASSES}; "
+          f"the medians' difference")
+    for label, walls, key in rows:
+        d = direct[key]
+        print(f"http '{label}': first {1e3 * walls[0]:.2f}, warm {ms(walls[1:])} ms over HTTP, "
+              f"{ms(d)} ms straight through the engine, "
+              f"+{1e3 * (statistics.median(walls[1:]) - statistics.median(d)):.2f} ms")
+    print(f"http: straight through the engine on a new thread (3 each): seed=5 "
+          f"{ms(fresh['short'])} ms (on this thread {ms(direct['short'])}), VC "
+          f"{ms(fresh['vc'])} ms (on this thread {ms(direct['vc'])})")
+    audio_s = passes[0]["audio_s"]
+    print(f"http: the 8 at once in coalesced groups {[p['groups8'] for p in passes]}; "
+          f"{audio_s:.3f} s audio: first {audio_s / passes[0]['batch8_s']:.2f}, warm median "
+          f"{audio_s / statistics.median(p['batch8_s'] for p in warm):.2f} audio-s/s over HTTP; "
+          f"synthesize_batch straight {audio_s / statistics.median(direct['batch8']):.2f}")
+    print(f"http: every synthesize_batch group {coalescer.batch_sizes}")
+    del engine
+    return counts
+
+
 TRAIN_SEED = 4321
 
 
@@ -1369,6 +1737,20 @@ def train_reference(torch, cfg):
                              f"the check cannot see a fault of its size")
 
 
+def seeded_state_dict(torch, cfg) -> dict:
+    """The serving phases' weights: drawn from ``SEED`` at the config's
+    width, the duration head biased, since random weights predict
+    meaningless durations, so a phoneme lasts about e^1.8 − 1 ≈ 5 frames."""
+    from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
+    from vispeech_tpu_torch.text import N_SYMBOLS
+
+    model = random_init_(Synthesizer.from_config(cfg, N_SYMBOLS), seed=SEED)
+    with torch.no_grad():
+        model.duration_predictor.proj.weight.mul_(0.1)
+        model.duration_predictor.proj.bias.fill_(1.8)
+    return model.state_dict()
+
+
 def main() -> int:
     import torch
 
@@ -1380,11 +1762,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from vispeech_tpu_torch.config import load_config
-    from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
     from vispeech_tpu_torch.ops.kernels import _build
-    from vispeech_tpu_torch.text import N_SYMBOLS
 
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--http"]:
+        _build.build_all()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = load_config(os.path.join(ROOT, "configs", "config.json"))
+        counts = http_phase(torch, dev, cfg, seeded_state_dict(torch, cfg),
+                            *serving_requests(torch, cfg))
+        print(json.dumps({"root": ROOT, "card": card_line(), "launches": counts}))
+        return 0
     if sys.argv[1:] == ["--kernel-times"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"root": ROOT, "card": card_line(), "ms": kernel_times(torch, dev)}))
@@ -1453,15 +1842,7 @@ def main() -> int:
     rows.update(check_train_kernels(torch, dev))
 
     cfg = load_config(os.path.join(ROOT, "configs", "config.json"))
-    model = random_init_(Synthesizer.from_config(cfg, N_SYMBOLS), seed=SEED)
-    # random weights predict meaningless durations: bias the duration head
-    # so a phoneme lasts about e^1.8 − 1 ≈ 5 frames
-    with torch.no_grad():
-        model.duration_predictor.proj.weight.mul_(0.1)
-        model.duration_predictor.proj.bias.fill_(1.8)
-    state_dict = model.state_dict()
-    del model
-
+    state_dict = seeded_state_dict(torch, cfg)
     engine, counts, expect, requests, plans = serve(torch, dev, cfg, state_dict)
     print(f"launches on the main path: {counts}, expected {expect}")
     if counts != expect:
@@ -1477,6 +1858,8 @@ def main() -> int:
     vc_counts = voice_conversion_phase(torch, dev, cfg, state_dict, engine, long_audio)
     del engine
     torch.cuda.empty_cache()
+    http_counts = http_phase(torch, dev, cfg, state_dict, *serving_requests(torch, cfg))
+    torch.cuda.empty_cache()
 
     root = tempfile.mkdtemp(prefix="vispeech_train_")
     try:
@@ -1485,8 +1868,9 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     train_reference(torch, cfg)
 
-    # A, B, C and D count the serving run and the VC run; the training run E and F
-    counts = {k: v + vc_counts[k] for k, v in counts.items()}
+    # A, B, C and D count the serving run, the VC run and the HTTP phase; the
+    # training run E and F
+    counts = {k: v + vc_counts[k] + http_counts[k] for k, v in counts.items()}
     counts.update({k: v for k, v in train_counts.items() if "_train_" in k})
     kernels = [dict(name=name, route="cuda",
                     source=f"vispeech_tpu_torch/csrc/{name.rsplit('_', 1)[0] if '_train_' in name else name}.cu",

@@ -644,3 +644,48 @@ def test_generator_keeps_kernel_d_weights_while_frozen(device, monkeypatch):
         c = gen(x)
     assert len(calls) == 3 and not gen._kernel_cache
     torch.testing.assert_close(c, a, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_server_on_the_card_launches_the_serving_kernels(device):
+    """The port's HTTP server with its coalescer, on an engine at the width
+    of ``configs/config.json`` (weights from a seed) on the card: ``GET
+    /tts`` answers with 16-bit WAV at the model rate, and kernels A, B, C and
+    D launch for it while E and F do not."""
+    import os
+    import threading
+    import urllib.request
+
+    from vispeech_tpu_torch.config import load_config
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.infer.server import make_server
+    from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.text import N_SYMBOLS
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "configs", "config.json"))
+    model = random_init_(Synthesizer.from_config(cfg, N_SYMBOLS), seed=3)
+    with torch.no_grad():
+        model.duration_predictor.proj.weight.mul_(0.1)
+        model.duration_predictor.proj.bias.fill_(1.8)
+    engine = TTSEngine(cfg, model.state_dict())
+    httpd, coalescer = make_server(engine, "127.0.0.1", 0, batch_window_ms=20.0, max_batch=16)
+    threading.Thread(target=httpd.serve_forever, args=(0.05,), daemon=True).start()
+    try:
+        kernels.reset_launches()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/tts?text=%5BP%5Dni2%20hao3%5BP%5D"
+        with urllib.request.urlopen(url, timeout=300) as r:
+            status, body = r.status, r.read()
+        counts = kernels.launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        coalescer.close()
+    assert status == 200 and body[:4] == b"RIFF"
+    assert int.from_bytes(body[24:28], "little") == cfg.data.sampling_rate
+    n = (len(body) - 44) // 2
+    assert n > 0 and n % cfg.data.hop_length == 0
+    assert all(counts[k] > 0 for k in ("rel_attention", "wn_stack", "mrf_stage",
+                                       "mrf_stage_folded")), counts
+    assert all(v == 0 for k, v in counts.items() if "_train_" in k), counts

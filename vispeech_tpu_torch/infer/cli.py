@@ -2,6 +2,10 @@
 
     python -m vispeech_tpu_torch.infer.cli -c configs/config.json -k logdir/run \
         -t "[P]ni2 hao3[P]" -s 0 -o out.wav [--device cpu]
+
+``-k`` names a run directory holding the port trainer's ``ckpt_*.pt``, the
+JAX trainer's ``ckpt_*.npz`` or the reference's ``G_*.pth``
+(``TTSEngine.from_checkpoint``).  Without ``--device cpu`` it needs a GPU.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from scipy.io import wavfile
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("-c", "--config", required=True)
-    p.add_argument("-k", "--ckpt-dir", required=True)
+    p.add_argument("-k", "--ckpt-dir", required=True,
+                   help="run directory with ckpt_*.pt, ckpt_*.npz or G_*.pth")
     p.add_argument("-t", "--text", required=True)
     p.add_argument("-s", "--speaker", default="0")
     p.add_argument("-o", "--output", default="out.wav")

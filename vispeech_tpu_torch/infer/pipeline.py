@@ -8,13 +8,22 @@ runs the plans one after another on the current stream (sequential
 dispatch; no side-stream overlap in this version).  ``voice_conversion``
 takes a waveform: host linear spectrogram → serving bucket →
 ``Synthesizer.voice_conversion`` → f32 audio.
+
+One engine call runs at a time: ``synthesize``, ``synthesize_batch`` and
+``voice_conversion`` hold the engine's lock, since they share process-wide
+state (the TF32 switches ``ServingPolicy.precision`` sets and restores, the
+kernels' prepared-weight caches and launch counters, the model's eval mode
+that each inference method sets and restores).  The HTTP server calls them
+from its coalescer's dispatcher and its worker thread.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import re
-from typing import Dict, List, Mapping, Optional, Sequence, Union
+import threading
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,28 +40,35 @@ from vispeech_tpu_torch.ops.policy import (
 )
 from vispeech_tpu_torch.text import N_SYMBOLS, cleaned_text_to_sequence, text_to_phones
 from vispeech_tpu_torch.utils.jax_weights import load_flax_params
+from vispeech_tpu_torch.utils.reference_import import reference_state_dict
 
 Control = Union[None, float, np.ndarray, Sequence[float]]
 
 _PH_PAD = 32
-_CKPT_RE = re.compile(r"^ckpt_(\d+)\.npz$")
+# the checkpoints a run directory may hold, in order of preference: the
+# port trainer's own, the JAX trainer's, the reference's generator
+CHECKPOINT_FORMATS = (
+    ("pt", re.compile(r"^ckpt_(\d+)\.pt$")),
+    ("npz", re.compile(r"^ckpt_(\d+)\.npz$")),
+    ("pth", re.compile(r"^G_(\d+)\.pth$")),
+)
 
 
-def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
-    if not os.path.isdir(ckpt_dir):
-        return None
-    steps = [int(m.group(1)) for m in map(_CKPT_RE.match, os.listdir(ckpt_dir)) if m]
-    return max(steps) if steps else None
+def find_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> Tuple[str, str]:
+    """(format, path) of the checkpoint to serve: the newest step (or
+    ``step``) of the first format in ``CHECKPOINT_FORMATS`` that has one."""
+    names = os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else []
+    for kind, pattern in CHECKPOINT_FORMATS:
+        steps = {int(m.group(1)): m.group(0) for m in map(pattern.match, names) if m}
+        if steps and (step is None or step in steps):
+            return kind, os.path.join(ckpt_dir, steps[max(steps) if step is None else step])
+    raise FileNotFoundError(f"no checkpoint{'' if step is None else f' at step {step}'} "
+                            f"in {ckpt_dir} (ckpt_*.pt, ckpt_*.npz or G_*.pth)")
 
 
-def load_generator_params(ckpt_dir: str, step: Optional[int] = None) -> Dict[str, np.ndarray]:
-    """The generator's flax parameters of a trainer checkpoint
+def load_generator_params(path: str) -> Dict[str, np.ndarray]:
+    """The generator's flax parameters of a JAX trainer checkpoint
     (``params_g/params/...`` arrays) as a flat ``{"a/b/c": ndarray}``."""
-    if step is None:
-        step = latest_checkpoint_step(ckpt_dir)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
-    path = os.path.join(ckpt_dir, f"ckpt_{step}.npz")
     flat = {}
     with np.load(path) as stored:
         for key in stored.files:
@@ -69,6 +85,15 @@ def _round_up(x: int, m: int) -> int:
 
 def _is_array(ctrl) -> bool:
     return isinstance(ctrl, (np.ndarray, list, tuple))
+
+
+def _one_at_a_time(method):
+    """Run ``method`` under the engine's lock (see the module docstring)."""
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return locked
 
 
 class TTSEngine:
@@ -90,6 +115,7 @@ class TTSEngine:
         self.transfer_int16 = (self.device.type == "cuda" if transfer_int16 is None
                                else bool(transfer_int16))
         self.spk2id = dict(cfg.data.spk2id)
+        self._lock = threading.Lock()
 
     @classmethod
     def from_flax_params(cls, cfg: Config, flat: Mapping[str, np.ndarray],
@@ -101,9 +127,17 @@ class TTSEngine:
     @classmethod
     def from_checkpoint(cls, config_path: str, ckpt_dir: str, step: Optional[int] = None,
                         **kw) -> "TTSEngine":
-        """Load a JAX trainer checkpoint (``ckpt_*.npz``) with numpy only."""
+        """Serve the generator of a run directory: the port trainer's
+        ``ckpt_*.pt`` (its ``model_g``), else the JAX trainer's
+        ``ckpt_*.npz``, else the reference's ``G_*.pth``; the newest step of
+        that format unless ``step`` is given.  A key that the port does not
+        have, or a port key left empty, raises."""
         cfg = load_config(config_path)
-        return cls.from_flax_params(cfg, load_generator_params(ckpt_dir, step), **kw)
+        kind, path = find_checkpoint(ckpt_dir, step)
+        if kind == "npz":
+            return cls.from_flax_params(cfg, load_generator_params(path), **kw)
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        return cls(cfg, ckpt["model_g"] if kind == "pt" else reference_state_dict(ckpt), **kw)
 
     # ------------------------------------------------------------ helpers
 
@@ -147,6 +181,7 @@ class TTSEngine:
     def phonemes(self, text: str) -> List[str]:
         return text_to_phones(text)
 
+    @_one_at_a_time
     def synthesize(self, text: Optional[str] = None,
                    phones: Optional[Sequence[str]] = None,
                    speaker: Union[int, str] = 0, noise_scale: float = 0.667,
@@ -199,6 +234,7 @@ class TTSEngine:
             out["audio_int16"] = pcm[0, :n_samples]
         return out
 
+    @_one_at_a_time
     def synthesize_batch(self, texts: Optional[Sequence[str]] = None,
                          phones_list: Optional[Sequence[Sequence[str]]] = None,
                          speakers: Union[int, str, Sequence] = 0,
@@ -274,6 +310,7 @@ class TTSEngine:
 
     # ------------------------------------------------------ voice conversion
 
+    @_one_at_a_time
     def voice_conversion(self, wav: np.ndarray, speaker_src: Union[int, str],
                          speaker_tgt: Union[int, str],
                          eps: Optional[np.ndarray] = None) -> Dict[str, object]:
