@@ -70,6 +70,21 @@ and check them.
    Prints each request's wall time over HTTP beside the same request
    straight through the engine, and the 8 requests' audio-seconds per
    second.
+3f. Raw text in (also alone as ``--text``): after 3d, on the engine of
+   phase 3 behind a server of 3e's kind, with the golden corpus's zh and
+   en lexicons (``tests/test_text.py``) loaded through the port's
+   ``load_zh_lexicon`` and ``load_en_lexicon``.  Prints which of jieba,
+   pypinyin, pyopenjtalk and g2p_en are importable.  For an ``[EN]``
+   block, unfenced English with punctuation, a ``[P]`` block followed by
+   ``[EN]`` and, where jieba is importable, the golden Mandarin
+   date-and-temperature string (its phones the golden ones): phones equal
+   to ``text_to_phones``, the engine's int16 PCM at a fixed seed equal to
+   ``synthesize(phones=…)`` to 0 LSB, ``GET /tts`` within 1 LSB of it,
+   ``/tts.json``'s phones the same, A-D launching and E/F not, through the
+   engine and over HTTP.  Without jieba a hanzi text and a digit text
+   answer 400 over HTTP and raise ImportError through the engine.  Prints
+   each text's ``text_to_phones`` host time (median of 20) beside the
+   request's engine and HTTP wall time (medians of 5).
 4. Writes a synthetic corpus (44.1 kHz, 24 utterances of 512-1024 frames)
    to a temporary directory and trains at the full width of
    ``configs/config.json`` (batch 12, bf16 ``tail_f32``): a warm-up step
@@ -80,8 +95,8 @@ and check them.
 4b. One f32 train step at reduced depth and batch with the kernels on the
    card against the plain versions on the host CPU, within 1e-4 relative,
    and a control step with the bf16 stages on that must miss that limit.
-5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d and
-   3e), the card's name and power limit, and
+5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d, 3f
+   and 3e), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
@@ -124,6 +139,11 @@ checkout this file sits in.
 
 runs phase 3e alone (the kernels built first) and prints its launch
 counts as one JSON line last.
+
+    python3 chip_smoke.py --text
+
+runs phase 3f alone (the kernels built first, on an engine of phase 3's
+weights) and prints its launch counts and times as one JSON line last.
 
     python3 chip_smoke.py --kernel-times
 
@@ -1532,6 +1552,214 @@ def http_phase(torch, dev, cfg, state_dict, requests, batch_texts):
     return counts
 
 
+# phase 3f: the golden corpus's lexicons (tests/test_text.py,
+# TestGoldenAdversarialCorpus) and its date-and-temperature string
+TEXT_ZH_LEX = """借 jie4
+还款 huan2 kuan3
+他 ta1
+只是 zhi3 shi4
+一个 yi2 ge4
+纸老虎 zhi3 lao3 hu3
+开户行 kai1 hu4 hang2
+奥 ao4
+大家 da4 jia1
+好 hao3
+三十三 san1 shi2 san1
+三 san1
+啊 a1
+我 wo3
+是 shi4
+萨达撒 sa4 da2 sa1
+一二三 yi1 er4 san1
+至 zhi4
+但是 dan4 shi4
+嗯 en1
+什么 shen2 me5
+东西 dong1 xi1
+沉甸甸 chen2 dian1 dian1
+的 de5
+下午 xia4 wu3
+一点 yi1 dian3
+今天 jin1 tian1
+五分之 wu3 fen1 zhi1
+二千零二十二 er4 qian1 ling2 er4 shi2 er4
+每 mei3
+十 shi2
+早上 zao3 shang4
+二零二零年 er4 ling2 er4 ling2 nian2
+十月 shi2 yue4
+二十九日 er4 shi2 jiu3 ri4
+最低 zui4 di1
+温度 wen1 du4
+负 fu4
+度 du4
+扎堆儿 zha1 duir1
+"""
+TEXT_EN_LEX = """ab AE1 B
+s EH1 S
+abst AE1 B S T
+a EY1
+b B IY1
+c S IY1
+d D IY1
+"""
+TEXT_GOLDEN_ZH = ("早上好，今天是2020/10/29，最低温度是-3°C。", [
+    "z", "ao3", "sh", "ang4", "h", "ao3", ",", "j", "in1", "t", "ian1",
+    "sh", "iii4", "er4", "l", "ing2", "er4", "l", "ing2", "n", "ian2",
+    "sh", "iii2", "ve4", "er4", "sh", "iii2", "j", "iou3", "r", "iii4",
+    ",", "z", "uei4", "d", "i1", "uen1", "d", "u4", "sh", "iii4",
+    "f", "u4", "s", "an1", "S", "IY1", ".",
+])
+# raw texts that need no jieba: English through the en lexicon, in a block,
+# unfenced with punctuation, and after a pinyin block
+TEXT_PLAIN = ("[EN]ab c, d![EN]", "ab c, d!", "[P]ni3 hao3 shi4 jie4[P][EN]abst a b c[EN]")
+TEXT_SEED, TEXT_SPEAKER = 7, 3
+TEXT_G2P_PACKAGES = ("jieba", "pypinyin", "pyopenjtalk", "g2p_en")
+
+
+def text_phase(torch, cfg, engine) -> tuple:
+    """Phase 3f: raw text in, through the engine and a server of phase 3e's
+    kind (coalescer, 20 ms window) on it.  The golden corpus's zh and en
+    lexicons are loaded through the port's frontends (and unloaded after).
+    For each text: its phones equal ``text_to_phones``; the engine's int16
+    PCM at a fixed seed equals ``synthesize(phones=…)`` of those phones to
+    0 LSB, and ``GET /tts`` with that seed is within 1 LSB of it; A-D
+    launch and E/F do not.  With jieba the golden Mandarin string gives
+    the golden phones; without it a hanzi text and a digit text answer 400
+    over HTTP and raise ImportError through the engine.  Prints the host
+    time of ``text_to_phones`` (median of 20) beside the engine's and the
+    server's time for the request.  → (the launch counts of the phase, a
+    row of times for each text)."""
+    import importlib.util
+    import statistics
+    import threading
+    from urllib.parse import urlencode
+
+    import numpy as np
+
+    from vispeech_tpu_torch.infer.server import make_server
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.text import frontends, text_to_phones
+
+    present = {m: importlib.util.find_spec(m) is not None for m in TEXT_G2P_PACKAGES}
+    print(f"text: optional G2P packages importable here: {present}")
+    texts = list(TEXT_PLAIN) + ([TEXT_GOLDEN_ZH[0]] if present["jieba"] else [])
+    refused = [] if present["jieba"] else [TEXT_GOLDEN_ZH[0], "33"]
+    sr = cfg.data.sampling_rate
+    saved = (dict(frontends._ZH_LEXICON), frontends._ZH_LEX_MAXLEN,
+             dict(frontends._EN_LEXICON))
+    root = tempfile.mkdtemp(prefix="vispeech_text_")
+    httpd = coalescer = None
+    try:
+        for name, body, load in (("zh.lex", TEXT_ZH_LEX, frontends.load_zh_lexicon),
+                                 ("en.lex", TEXT_EN_LEX, frontends.load_en_lexicon)):
+            path = os.path.join(root, name)
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(body)
+            load(path)
+        httpd, coalescer = make_server(engine, "127.0.0.1", 0, batch_window_ms=20.0,
+                                       max_batch=16)
+        threading.Thread(target=httpd.serve_forever, args=(0.05,), daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        query = dict(speaker=TEXT_SPEAKER, seed=TEXT_SEED)
+
+        def say(text):
+            return engine.synthesize(text=text, speaker=TEXT_SPEAKER, seed=TEXT_SEED)
+
+        total = {}
+        rows = []
+        for text in texts:
+            phones = text_to_phones(text)
+            if text == TEXT_GOLDEN_ZH[0] and phones != TEXT_GOLDEN_ZH[1]:
+                raise AssertionError(f"text: golden Mandarin phones {phones}")
+            say(text)                        # meets the shapes
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            out = say(text)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            same = engine.synthesize(phones=phones, speaker=TEXT_SPEAKER, seed=TEXT_SEED)
+            if out["phones"] != phones or same["phones"] != phones:
+                raise AssertionError(f"text {text!r}: phones {out['phones']} != {phones}")
+            pcm, ref = out["audio_int16"], same["audio_int16"]
+            if len(pcm) != len(ref) or not np.array_equal(pcm, ref) or not len(pcm):
+                raise AssertionError(f"text {text!r}: PCM differs from synthesize(phones=)")
+            kernels.reset_launches()
+            ans = http_request(f"{url}/tts?{urlencode(dict(text=text, **query))}")
+            js = http_request(f"{url}/tts.json?{urlencode(dict(text=text, **query))}")
+            torch.cuda.synchronize()
+            served = kernels.launch_counts()
+            got = wav_pcm(f"text {text!r} over HTTP", ans, sr)
+            lsb = (int(np.abs(got.astype(np.int32) - pcm).max())
+                   if len(got) == len(pcm) else None)
+            if lsb is None or lsb > 1:
+                raise AssertionError(f"text {text!r}: HTTP PCM vs the engine: {lsb} LSB")
+            if js[0] != 200 or json.loads(js[2])["phones"] != phones:
+                raise AssertionError(f"text {text!r}: /tts.json {js[0]} {js[2][:200]!r}")
+            for where, c in (("engine", counts), ("HTTP", served)):
+                fired = [c[k] for k in ("rel_attention", "wn_stack", "mrf_stage",
+                                        "mrf_stage_folded")]
+                idle = {k: v for k, v in c.items() if "_train_" in k and v}
+                if 0 in fired or idle:
+                    raise AssertionError(f"text {text!r} through the {where}: A-D launches "
+                                         f"{fired}, E/F {idle}")
+            for k in counts:
+                total[k] = total.get(k, 0) + counts[k] + served[k]
+            host = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                text_to_phones(text)
+                host.append(time.perf_counter() - t0)
+            walls, http_walls = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                say(text)
+                walls.append(time.perf_counter() - t0)
+                http_walls.append(http_request(
+                    f"{url}/tts?{urlencode(dict(text=text, **query))}")[3])
+            rows.append(dict(text=text, phones=len(phones), samples=len(pcm), http_lsb=lsb,
+                             text_to_phones_ms=1e3 * statistics.median(host),
+                             engine_ms=1e3 * statistics.median(walls),
+                             http_ms=1e3 * statistics.median(http_walls)))
+        for text in refused:
+            ans = http_request(f"{url}/tts?{urlencode(dict(text=text, **query))}")
+            if ans[0] != 400 or b"text frontend" not in ans[2]:
+                raise AssertionError(f"text {text!r} without jieba: HTTP {ans[0]} {ans[2]!r}")
+            try:
+                say(text)
+            except ImportError as e:
+                error = e
+            else:
+                raise AssertionError(f"text {text!r} without jieba: the engine did not raise")
+            print(f"text {text!r}: HTTP 400 {json.loads(ans[2])['error']!r}; the engine "
+                  f"raised {type(error).__name__}: {error}")
+        if refused:
+            print("text: the Mandarin path was not run on this machine: jieba is not "
+                  "importable, and tone sandhi imports it for every hanzi word")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            coalescer.close()
+        shutil.rmtree(root, ignore_errors=True)
+        frontends._ZH_LEXICON.clear()
+        frontends._ZH_LEXICON.update(saved[0])
+        frontends._ZH_LEX_MAXLEN = saved[1]
+        frontends._EN_LEXICON.clear()
+        frontends._EN_LEXICON.update(saved[2])
+    print(card_line())
+    print("text rows: text_to_phones on the host (median of 20 calls), the request "
+          "straight through the engine and over HTTP (medians of 5), ms")
+    for r in rows:
+        print(f"text {r['text']!r}: {r['phones']} phones, {r['samples']} samples, "
+              f"text_to_phones {r['text_to_phones_ms']:.4f} ms, engine {r['engine_ms']:.2f} ms, "
+              f"HTTP {r['http_ms']:.2f} ms; HTTP PCM within {r['http_lsb']} LSB, "
+              f"synthesize(phones=) 0 LSB")
+    print(f"text: launches over the phase {total}")
+    return total, rows
+
+
 TRAIN_SEED = 4321
 
 
@@ -1774,6 +2002,19 @@ def main() -> int:
                             *serving_requests(torch, cfg))
         print(json.dumps({"root": ROOT, "card": card_line(), "launches": counts}))
         return 0
+    if sys.argv[1:] == ["--text"]:
+        from vispeech_tpu_torch.infer.pipeline import TTSEngine
+
+        _build.build_all()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = load_config(os.path.join(ROOT, "configs", "config.json"))
+        engine = TTSEngine(cfg, seeded_state_dict(torch, cfg), device=dev.type,
+                           transfer_int16=True)
+        counts, rows = text_phase(torch, cfg, engine)
+        print(json.dumps({"root": ROOT, "card": card_line(), "launches": counts,
+                          "text": rows}))
+        return 0
     if sys.argv[1:] == ["--kernel-times"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"root": ROOT, "card": card_line(), "ms": kernel_times(torch, dev)}))
@@ -1856,6 +2097,7 @@ def main() -> int:
     reference_check(torch, dev, cfg, state_dict)
     long_audio = engine.synthesize(**requests[1][1])["audio"]
     vc_counts = voice_conversion_phase(torch, dev, cfg, state_dict, engine, long_audio)
+    text_counts, _ = text_phase(torch, cfg, engine)
     del engine
     torch.cuda.empty_cache()
     http_counts = http_phase(torch, dev, cfg, state_dict, *serving_requests(torch, cfg))
@@ -1868,9 +2110,10 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     train_reference(torch, cfg)
 
-    # A, B, C and D count the serving run, the VC run and the HTTP phase; the
-    # training run E and F
-    counts = {k: v + vc_counts[k] + http_counts[k] for k, v in counts.items()}
+    # A, B, C and D count the serving run, the VC run, the text phase and the
+    # HTTP phase; the training run E and F
+    counts = {k: v + vc_counts[k] + text_counts[k] + http_counts[k]
+              for k, v in counts.items()}
     counts.update({k: v for k, v in train_counts.items() if "_train_" in k})
     kernels = [dict(name=name, route="cuda",
                     source=f"vispeech_tpu_torch/csrc/{name.rsplit('_', 1)[0] if '_train_' in name else name}.cu",

@@ -38,7 +38,7 @@ from vispeech_tpu_torch.ops.attention import Encoder
 from vispeech_tpu_torch.ops.flows import ResidualCouplingLayer
 from vispeech_tpu_torch.ops.length_regulator import length_regulate
 from vispeech_tpu_torch.ops.masking import generate_path, length_mask
-from vispeech_tpu_torch.text import cleaned_text_to_sequence, symbols, text_to_phones
+from vispeech_tpu_torch.text import N_SYMBOLS, cleaned_text_to_sequence, symbols, text_to_phones
 from vispeech_tpu_torch.utils.jax_weights import load_flax_params
 
 ATOL = 1e-5
@@ -224,8 +224,8 @@ class TestFlowAndGenerator:
 
 class TestText:
     def test_symbol_table_matches(self):
-        assert symbols.symbols == JAX_SYMBOLS
-        assert symbols.N_SYMBOLS == 519
+        assert symbols == JAX_SYMBOLS
+        assert N_SYMBOLS == 519
 
     @pytest.mark.parametrize("text", ["[P]ni2 hao3 shi4 jie4[P]",
                                       "[P]zhuang1 dianr3 lv4 yue4[P] [P]er2[P]"])
@@ -234,12 +234,19 @@ class TestText:
         assert (cleaned_text_to_sequence(text_to_phones(text))
                 == jax_cleaner.text_to_sequence(text))
 
-    @pytest.mark.parametrize("text,frontend", [("你好", "zh/en/ja"),
-                                               ("[EN]hello[EN]", "English"),
-                                               ("[P]ni2[P] hello", "zh/en/ja")])
+    @pytest.mark.parametrize("text,frontend", [("你好", "Mandarin G2P"),
+                                               ("[EN]hello[EN]", "English G2P"),
+                                               ("[P]ni2[P] hello", "English G2P")])
     def test_text_outside_pinyin_names_missing_frontend(self, text, frontend):
-        with pytest.raises(ValueError, match=frontend):
+        """With no G2P package and no lexicon loaded, text outside a [P]
+        block raises the JAX package's FrontendUnavailable, naming the
+        backend it lacks."""
+        with pytest.raises(RuntimeError, match=frontend) as ours:
             text_to_phones(text)
+        with pytest.raises(RuntimeError, match=frontend) as ref:
+            jax_cleaner.text_to_phones(text)
+        assert type(ours.value).__name__ == type(ref.value).__name__ == "FrontendUnavailable"
+        assert str(ours.value) == str(ref.value)
 
 
 class TestWeightBridge:

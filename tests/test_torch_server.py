@@ -19,6 +19,10 @@ tolerances these tests share).
 * ``TTSEngine.from_checkpoint``, the synthesis CLI and the server's
   ``main`` on a port ``ckpt_*.pt``, a JAX ``ckpt_*.npz`` and a reference
   ``G_*.pth``, all saved from one seeded port model.
+* Plain text against the JAX server: English through a loaded lexicon, in
+  an ``[EN]`` block and unfenced, on ``/tts.json`` and ``/tts``; hanzi with
+  no zh lexicon loaded is a 400 in both; the CLI's ``-t`` and the server's
+  ``main`` with ``--en-lexicon``.
 """
 
 import io
@@ -46,6 +50,7 @@ from test_torch_synthesizer import (  # noqa: F401 - `models` is a fixture
     TEXTS,
     models,
 )
+from test_torch_text import EN_LEX, PACKAGES, PORT, _saved_state
 
 from vispeech_tpu.dsp.resample import resample as jax_resample
 from vispeech_tpu.infer.pipeline import TTSEngine as JaxEngine
@@ -417,3 +422,87 @@ def test_main_without_device_needs_a_gpu(run, monkeypatch):
     monkeypatch.setattr(server, "serve", lambda *a, **k: pytest.fail("served"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         server.main(["-c", str(run / "config.json"), "-k", str(run)])
+
+
+# ------------------------------------------------------------------ plain text
+
+# an [EN] block drops its trailing punctuation; unfenced, "!" is a zh segment
+PLAIN_TEXTS = {"[EN]ab c, d![EN]": ["AE1", "B", "S", "IY1", ",", "D", "IY1"],
+               "ab c, d!": ["AE1", "B", "S", "IY1", ",", "D", "IY1", "!"]}
+
+
+@pytest.fixture
+def en_lexicon(tmp_path):
+    """The golden corpus's en lexicon loaded into both packages, and their
+    lexicons and zh backend restored after the test."""
+    path = tmp_path / "en.lex"
+    path.write_text(EN_LEX, encoding="utf-8")
+    with _saved_state():
+        for P in PACKAGES:
+            P.frontends.load_en_lexicon(str(path))
+        yield str(path)
+
+
+@pytest.fixture(scope="module")
+def both_servers(models, engine):
+    """(JAX server URL, port server URL) on the same weights."""
+    jax_engine = JaxEngine(models["jcfg"], models["variables"], policy=FLOAT32_XLA,
+                           transfer_int16=False)
+    jax_httpd, jax_url = _start(jax_make_handler(jax_engine, threading.Lock()))
+    httpd, url = _start(server.make_handler(engine, threading.Lock()))
+    yield jax_url, url
+    _stop(jax_httpd)
+    _stop(httpd)
+
+
+@pytest.mark.parametrize("text,phones", PLAIN_TEXTS.items())
+def test_plain_text_same_answers_as_the_jax_server(both_servers, en_lexicon, text, phones):
+    """English through a loaded lexicon, in a block and unfenced: both
+    endpoints answer as the JAX server does."""
+    query = f"?text={quote(text)}&speaker=2&noise=0&duration=1.5"
+    (ref_status, _, ref_body), (status, _, body) = (
+        _get(u + "/tts.json" + query) for u in both_servers)
+    ref, out = json.loads(ref_body), json.loads(body)
+    assert status == ref_status == 200
+    assert out["phones"] == ref["phones"] == PORT.pkg.text_to_phones(text)
+    assert out["phones"] == phones
+    assert out["duration"] == ref["duration"]
+    np.testing.assert_allclose(out["f0"], ref["f0"], rtol=F0_RTOL, atol=F0_ATOL)
+
+    (ref_status, ref_ctype, ref_wav), (status, ctype, wav) = (
+        _get(u + "/tts" + query) for u in both_servers)
+    assert status == ref_status == 200 and ctype == ref_ctype == "audio/wav"
+    assert wav[:44] == ref_wav[:44]
+    assert np.abs(_pcm(ref_wav)).max() > 100
+    diff = np.abs(_pcm(wav).astype(np.int32) - _pcm(ref_wav))
+    assert diff.max() <= PCM_LSB, diff.max()
+
+
+@pytest.mark.parametrize("path", ["/tts", "/tts.json"])
+def test_hanzi_without_zh_lexicon_is_400_in_both(both_servers, path):
+    with _saved_state():
+        for P in PACKAGES:
+            P.frontends._ZH_LEXICON.clear()
+        (ref_code, ref), (code, out) = (_error(_get, f"{u}{path}?text={quote('你好世界')}")
+                                        for u in both_servers)
+    assert code == ref_code == 400
+    assert out == ref and "text frontend" in out["error"], (out, ref)
+
+
+def test_cli_and_server_take_plain_text(models, run, en_lexicon, monkeypatch, capsys):
+    """``-t`` with plain English and ``--en-lexicon`` writes the WAV of its
+    phones; the server's ``main`` loads the same flag."""
+    _write_checkpoint("pt", run, models)
+    config, lex = str(run / "config.json"), str(run / "en.lex")
+    (run / "en.lex").write_text("zz Z IY1\n", encoding="utf-8")
+    wav = run / "plain.wav"
+    cli.main(["-c", config, "-k", str(run), "-t", "ab c, d! zz", "-o", str(wav),
+              "--device", "cpu", "--en-lexicon", lex])
+    sr, data = wavfile.read(wav)
+    assert sr == 8000 and data.dtype == np.int16 and len(data) % HOP == 0 and len(data)
+    assert "phones: AE1 B S IY1 , D IY1 ! Z IY1" in capsys.readouterr().out
+
+    PORT.frontends._EN_LEXICON.pop("zz")
+    monkeypatch.setattr(server, "serve", lambda *a, **k: None)
+    server.main(["-c", config, "-k", str(run), "--device", "cpu", "--en-lexicon", lex])
+    assert PORT.frontends._EN_LEXICON["zz"] == ["Z", "IY1"]

@@ -1,10 +1,16 @@
 """Command-line synthesis with the PyTorch port.
 
     python -m vispeech_tpu_torch.infer.cli -c configs/config.json -k logdir/run \
-        -t "[P]ni2 hao3[P]" -s 0 -o out.wav [--device cpu]
+        -t "你好世界" -s 0 -o out.wav [--device cpu] \
+        [--zh-lexicon zh.lex] [--en-lexicon en.lex]
 
-``-k`` names a run directory holding the port trainer's ``ckpt_*.pt``, the
-JAX trainer's ``ckpt_*.npz`` or the reference's ``G_*.pth``
+``-t`` takes what ``vispeech_tpu_torch.text.text_to_phones`` takes: plain
+Chinese, English or mixed text, ``[ZH]``/``[EN]``/``[JA]`` blocks and
+``[P]ni2 hao3[P]`` pinyin.  Hanzi need jieba and either pypinyin or a
+``--zh-lexicon`` (lines ``word pin1 yin1 ...``); English words need g2p_en
+or an ``--en-lexicon`` (CMUdict lines ``word PHONES...``).  ``-k`` names a
+run directory holding the port trainer's ``ckpt_*.pt``, the JAX trainer's
+``ckpt_*.npz`` or the reference's ``G_*.pth``
 (``TTSEngine.from_checkpoint``).  Without ``--device cpu`` it needs a GPU.
 """
 
@@ -14,6 +20,24 @@ import argparse
 import time
 
 from scipy.io import wavfile
+
+
+def add_lexicon_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--zh-lexicon", action="append", default=[],
+                   help="hanzi lexicon (word pin1 yin1 ...) for Mandarin G2P "
+                        "without pypinyin; repeatable")
+    p.add_argument("--en-lexicon", action="append", default=[],
+                   help="CMUdict-style lexicon (word PHONES...) looked up "
+                        "before g2p_en; repeatable")
+
+
+def load_lexicons(args: argparse.Namespace) -> None:
+    from vispeech_tpu_torch.text.frontends import load_en_lexicon, load_zh_lexicon
+
+    for path in args.zh_lexicon:
+        load_zh_lexicon(path)
+    for path in args.en_lexicon:
+        load_en_lexicon(path)
 
 
 def main(argv=None):
@@ -30,7 +54,9 @@ def main(argv=None):
     p.add_argument("--energy-scale", type=float, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_lexicon_args(p)
     args = p.parse_args(argv)
+    load_lexicons(args)
 
     from vispeech_tpu_torch.infer.pipeline import TTSEngine
 

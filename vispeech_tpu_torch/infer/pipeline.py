@@ -179,6 +179,9 @@ class TTSEngine:
     # ------------------------------------------------------------ main API
 
     def phonemes(self, text: str) -> List[str]:
+        """Raw text → phones (``text.text_to_phones``).  A frontend that
+        cannot read the text raises (``FrontendUnavailable``, or jieba's
+        ``ImportError`` for hanzi without jieba); the server answers 400."""
         return text_to_phones(text)
 
     @_one_at_a_time

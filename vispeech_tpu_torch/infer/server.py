@@ -1,12 +1,17 @@
 """HTTP TTS server of the PyTorch port (``vispeech_tpu/infer/server.py``).
 
     python -m vispeech_tpu_torch.infer.server -c configs/config.json -k logdir/run \
-        [--device cpu] [--batch-window-ms 20] [--max-batch 16]
+        [--device cpu] [--batch-window-ms 20] [--max-batch 16] \
+        [--zh-lexicon zh.lex] [--en-lexicon en.lex]
 
 ``-k`` names a run directory holding the port trainer's ``ckpt_*.pt``, the
 JAX trainer's ``ckpt_*.npz`` or the reference's ``G_*.pth``
 (``TTSEngine.from_checkpoint``).  The engine runs on the GPU unless
 ``--device cpu`` is given; without a GPU it raises.
+
+``text`` is what ``vispeech_tpu_torch.text.text_to_phones`` takes (plain
+Chinese, English or mixed text, language blocks, ``[P]`` pinyin); the
+lexicon flags are those of ``infer/cli.py``.
 
 Endpoints:
   GET /tts?text=...&speaker=0&noise=0.667&duration=1.0&pitch=1.0&energy=1.0
@@ -45,6 +50,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from vispeech_tpu_torch.dsp.resample import resample
+from vispeech_tpu_torch.infer.cli import add_lexicon_args, load_lexicons
 from vispeech_tpu_torch.infer.coalescer import RequestCoalescer, ServerBusy
 
 GUI_HTML = """<!doctype html>
@@ -365,12 +371,14 @@ def main(argv=None):
                    help="request-coalescing window; 0 = serial mutex mode")
     p.add_argument("--max-batch", type=int, default=16)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_lexicon_args(p)
     args = p.parse_args(argv)
 
     from vispeech_tpu_torch.infer.pipeline import TTSEngine
     from vispeech_tpu_torch.ops.policy import resolve_device
 
     resolve_device(args.device)   # no GPU and no --device cpu: raise before loading
+    load_lexicons(args)
     engine = TTSEngine.from_checkpoint(args.config, args.ckpt_dir, device=args.device)
     serve(engine, args.host, args.port, batch_window_ms=args.batch_window_ms,
           max_batch=args.max_batch)

@@ -1,9 +1,12 @@
-"""Text cleaner: punctuation mapping and the ``[P]…[P]`` pinyin block path.
+"""Top-level text cleaner: punctuation mapping + language-block dispatch.
 
-Only pinyin blocks have a frontend in this package.  Any other text (a
-``[ZH]``, ``[EN]`` or ``[JA]`` block, or characters outside a block) raises a
-``ValueError`` that names the frontend it would need.  Phones outside the
-vocabulary are dropped with a warning; ``-`` / ``--`` map to ``sp``.
+The same contract as ``vispeech_tpu/text/cleaner.py``:
+  * full-width → half-width punctuation table
+  * ``[ZH]..[ZH]`` / ``[JA]..[JA]`` / ``[EN]..[EN]`` / ``[P]..[P]`` blocks route
+    to the per-language frontends; text outside any block goes through
+    character-class language segmentation (mix frontend)
+  * phones not in the vocabulary are dropped (with a warning); ``-``/``--``
+    map to ``sp``
 """
 
 from __future__ import annotations
@@ -11,8 +14,11 @@ from __future__ import annotations
 import re
 from typing import List
 
+from vispeech_tpu_torch.text import cleaned_text_to_sequence
+from vispeech_tpu_torch.text.frontends import en_to_phonemes, ja_to_phonemes, zh_to_phonemes
+from vispeech_tpu_torch.text.mix import others_to_phonemes
 from vispeech_tpu_torch.text.pinyin import pinyin_to_phonemes
-from vispeech_tpu_torch.text.symbols import SYMBOL_TO_ID
+from vispeech_tpu_torch.text.symbols import symbol_set
 
 _PHONE_ALIASES = {"-": "sp", "--": "sp"}
 
@@ -23,8 +29,6 @@ _PUNCT_DST = [",", ",", ",", ".", "!", "?", "[", "]", '"', "(", ")", "%", "#",
 
 _BLOCK_RE = re.compile(r"\[(JA|ZH|EN|P)\](.*?)\[\1\]")
 
-_FRONTENDS = {"ZH": "Mandarin (zh)", "EN": "English (en)", "JA": "Japanese (ja)"}
-
 
 def str_replace(text: str) -> str:
     for src, dst in zip(_PUNCT_SRC, _PUNCT_DST):
@@ -33,22 +37,23 @@ def str_replace(text: str) -> str:
 
 
 def remove_invalid_phonemes(phonemes: List[str]) -> List[str]:
+    valid = symbol_set()
     out = []
     for ph in phonemes:
         ph = _PHONE_ALIASES.get(ph, ph)
-        if ph in SYMBOL_TO_ID:
+        if ph in valid:
             out.append(ph)
         else:
             print("skip：", ph)
     return out
 
 
-def _reject_unfenced(text: str) -> None:
-    if text.strip():
-        raise ValueError(
-            f"text outside a [P]...[P] block ({text.strip()[:40]!r}) needs the "
-            "zh/en/ja text frontend, which vispeech_tpu_torch does not have "
-            "yet; write the text as toned pinyin inside [P]...[P]")
+_DISPATCH = {
+    "P": pinyin_to_phonemes,
+    "JA": ja_to_phonemes,
+    "ZH": zh_to_phonemes,
+    "EN": en_to_phonemes,
+}
 
 
 def text_to_phones(text: str) -> List[str]:
@@ -57,13 +62,12 @@ def text_to_phones(text: str) -> List[str]:
     last_end = 0
     for block in _BLOCK_RE.finditer(text):
         start, end = block.span()
-        _reject_unfenced(text[last_end:start])
+        phonemes += others_to_phonemes(text[last_end:start])
         last_end = end
-        lang = block.group(1)
-        if lang != "P":
-            raise ValueError(
-                f"a [{lang}] block needs the {_FRONTENDS[lang]} text frontend, "
-                "which vispeech_tpu_torch does not have yet")
-        phonemes += pinyin_to_phonemes(block.group(2))
-    _reject_unfenced(text[last_end:])
+        phonemes += _DISPATCH[block.group(1)](block.group(2))
+    phonemes += others_to_phonemes(text[last_end:])
     return remove_invalid_phonemes(phonemes)
+
+
+def text_to_sequence(text: str) -> List[int]:
+    return cleaned_text_to_sequence(text_to_phones(text))

@@ -8,6 +8,7 @@ is the sorted union of the 21 pinyin initials and {final + tone} for every
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict, List, Sequence
 
 ZH_INITIALS: Sequence[str] = (
@@ -64,3 +65,8 @@ SYMBOL_TO_ID: Dict[str, int] = {s: i for i, s in enumerate(symbols)}
 ID_TO_SYMBOL: Dict[int, str] = dict(enumerate(symbols))
 
 N_SYMBOLS = len(symbols)
+
+
+@lru_cache(maxsize=1)
+def symbol_set() -> frozenset:
+    return frozenset(symbols)
