@@ -95,8 +95,28 @@ and check them.
 4b. One f32 train step at reduced depth and batch with the kernels on the
    card against the plain versions on the host CPU, within 1e-4 relative,
    and a control step with the bf16 stages on that must miss that limit.
-5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d, 3f
-   and 3e), the card's name and power limit, and
+4c. The Trainer (also alone as ``--trainer``): a full-width ``Trainer``
+   (batch 12, tail_f32) on phase 4's corpus with its validation list,
+   evals at steps 2 and 4, step 2 traced (``profile_steps``).  Prints which
+   of tensorboardX, matplotlib and soundfile are importable; checks the
+   run directory (config.json read back, githash in a git checkout, tb/,
+   tb_eval/ and the evals' audio where TensorBoard cannot take it), A-D's
+   launches (14/4/1/1 an eval), the trace file and E's and F's kernels in
+   it; prints the trace's size and the traced step's peak memory.  One
+   eval: wall time on the model in training and on a copy with frozen
+   weight norms, device time (profiled), launches, its audio at noise 0
+   against a CPU copy with the unfolded f32 decoder (1e-3 of the peak), and
+   its FLOPs (``utils/flops.model_cost`` on that CPU copy) with
+   ``roofline_row`` against ``chip_peaks()`` (f32).
+4d. One batch of 12 of 4c's corpus through a ``TrainStep`` for f32,
+   tail_f32, bf16_disc, bf16_only [dec], stable and full on 4c's weights,
+   two passes in turns of a warm-up and 3 timed steps: E and F's launches,
+   finite losses, the median of 6; a tail_f32 and a bf16_disc step
+   profiled, with the scale discriminator's grouped-conv input gradient;
+   a tail_f32 step's FLOPs (counted on CPU copies at batches 1 and 2,
+   extrapolated to 12) and its ``roofline_row`` (bf16).
+5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d, 3f,
+   3e and 4c), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
@@ -114,6 +134,11 @@ one JSON line last, for the checkout this file sits in.
 runs phase 4 alone and prints its step times, the profiled step's wall
 and device busy time and the kernels' device time in it, as one JSON line
 last, for the checkout this file sits in.
+
+    python3 chip_smoke.py --trainer
+
+runs phases 4c and 4d alone and prints their records as one JSON line
+last.
 
     python3 chip_smoke.py --e-bwd
 
@@ -156,6 +181,7 @@ within one run.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -1088,11 +1114,13 @@ KERNEL_FUNCS = {"rel_attention": ("rel_attention_",), "wn_stack": ("wn_stack_ker
                 "rel_attention_train_bwd": ("bwd16::", "bwd_q_kernel<", "bwd_kv_kernel<")}
 
 
-def profile(torch, label, fn, top, record=None):
+def profile(torch, label, fn, top, record=None, match=None):
     """``fn()`` once under torch.profiler: the device's busy share of its
     wall time, the ``top`` device ops by time, and the summed device time of
     each kernel of ``KERNEL_FUNCS`` (phases 3, 3c, 3d and 4).  → {kernel:
-    (ms, count)}; ``record`` (a dict) also gets the wall and busy ms."""
+    (ms, count)}; ``record`` (a dict) also gets the wall and busy ms, and
+    under "matched" the summed (ms, count) of the device ops whose name
+    holds each text of ``match`` ({name: text})."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -1113,6 +1141,10 @@ def profile(torch, label, fn, top, record=None):
           f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} device ops")
     if record is not None:
         record.update(wall_ms=wall_ms, busy_ms=busy_ms)
+        record["matched"] = {
+            name: (sum(e.self_device_time_total for e in events if text in e.key) / 1e3,
+                   sum(e.count for e in events if text in e.key))
+            for name, text in (match or {}).items()}
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     totals = {}
@@ -1965,6 +1997,272 @@ def train_reference(torch, cfg):
                              f"the check cannot see a fault of its size")
 
 
+TRAINER_PACKAGES = ("tensorboardX", "matplotlib", "soundfile")
+EVAL_STEPS = (2, 4)       # phase 4c: eval_interval 2 over 4 steps
+TRAINER_PROFILE = (2, 3)  # phase 4c: the traced steps [2, 3)
+EVAL_PER_CALL = {"rel_attention": 14, "wn_stack": 4, "mrf_stage": 1, "mrf_stage_folded": 1}
+BF16_OPTIONS = (   # phase 4d: name, train-config changes
+    ("f32", {"fp16_run": False}),
+    ("tail_f32", {"fp16_run": True}),
+    ("bf16_disc", {"fp16_run": True, "bf16_disc": True}),
+    ("bf16_only [dec]", {"fp16_run": True, "bf16_only": ("dec",)}),
+    ("stable", {"fp16_run": True, "bf16_scope": "stable", "bf16_allow_divergent": True}),
+    ("full", {"fp16_run": True, "bf16_scope": "full", "bf16_allow_divergent": True}),
+)
+
+
+def _cpu_copy(torch, model, like):
+    """``like`` (a fresh module of the same kind) on the CPU with ``model``'s
+    weights."""
+    like.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    return like
+
+
+def _affine_cost(cost_at):
+    """{flops, bytes} at batch 12 from the counts at batches 1 and 2: for a
+    step's fixed padded shapes the count is a + b·B (the batch's rows, plus
+    what is counted once a step)."""
+    one, two = cost_at(1), cost_at(2)
+    return {k: one[k] + 11 * (two[k] - one[k]) for k in one}
+
+
+def trainer_phase(torch, cfg, root, record):
+    """Phase 4c: the Trainer at full width (batch 12, tail_f32) on phase 4's
+    corpus with its validation list: 4 steps through ``Trainer.train`` with
+    an eval at steps 2 and 4 and step 2 traced.  Checks the run directory
+    (config.json read back, githash, tb/ and tb_eval/), A-D's launches
+    (each eval's), the trace file and its E and F kernels, and the eval's
+    audio against the plain f32 path on the CPU at noise scale 0 (1e-3 of
+    the peak, phase 3b's tolerance).  Times one eval (wall and device) and
+    counts its FLOPs on the CPU copy (``utils/flops.model_cost``).  →
+    (A-D's launch counts over the train call, the trainer)."""
+    import copy
+    import importlib.util
+
+    import numpy as np
+
+    from vispeech_tpu_torch.config import load_config
+    from vispeech_tpu_torch.models.synthesizer import Synthesizer
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.ops.layers import freeze_weight_norm
+    from vispeech_tpu_torch.text import N_SYMBOLS
+    from vispeech_tpu_torch.train.loop import Trainer, synthesize_utterance
+    from vispeech_tpu_torch.utils.flops import chip_peaks, model_cost, roofline_row
+
+    present = {m: importlib.util.find_spec(m) is not None for m in TRAINER_PACKAGES}
+    print(f"trainer: importable {present}")
+    record["importable"] = present
+    cfg, data_root = _corpus(root, cfg)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             eval_interval=EVAL_STEPS[0]))
+    trainer = Trainer(cfg, data_root=data_root)
+    # random weights predict meaningless durations: bias the duration head
+    # as the serving phases' weights do (a phoneme ≈ e^1.8 − 1 frames)
+    with torch.no_grad():
+        trainer.model_g.duration_predictor.proj.weight.mul_(0.1)
+        trainer.model_g.duration_predictor.proj.bias.fill_(1.8)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train(max_steps=EVAL_STEPS[-1], profile_steps=TRAINER_PROFILE)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"trainer: {EVAL_STEPS[-1]} steps with evals at {EVAL_STEPS} and step "
+          f"{TRAINER_PROFILE[0]} traced in {time.perf_counter() - t0:.2f} s; launches {counts}")
+    d = cfg.train.save_dir
+    if load_config(os.path.join(d, "config.json")) != cfg:
+        raise AssertionError("config.json does not read back as the run's config")
+    # githash only in a git checkout, as the JAX trainer writes it
+    try:
+        git = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True,
+                             cwd=ROOT).returncode
+    except OSError:   # no git on the machine
+        git = 1
+    for name in ("train.log", "tb", "tb_eval", f"ckpt_{EVAL_STEPS[-1]}.pt") + (
+            ("githash",) if git == 0 else ()):
+        if not os.path.exists(os.path.join(d, name)):
+            raise AssertionError(f"the run directory lacks {name}")
+    tb_files = sorted(os.listdir(os.path.join(d, "tb")))
+    eval_files = sorted(os.listdir(os.path.join(d, "tb_eval")))
+    audio = sorted(os.listdir(os.path.join(d, "tb_eval", "audio"))) \
+        if "audio" in eval_files else []
+    print(f"trainer: run dir {sorted(os.listdir(d))}; tb/ {tb_files}; tb_eval/ {eval_files} "
+          f"{audio}")
+    if not tb_files or not eval_files:
+        raise AssertionError("no TensorBoard output")
+    if not present["tensorboardX"] and len(audio) != 2 * len(EVAL_STEPS):
+        raise AssertionError(f"the evals' audio was not written: {audio}")
+    expect = {k: v * len(EVAL_STEPS) for k, v in EVAL_PER_CALL.items()}
+    got = {k: counts[k] for k in EVAL_PER_CALL}
+    if got != expect:
+        raise AssertionError(f"A-D launches over the evals {got} != {expect}")
+
+    trace_path = os.path.join(d, "profile", f"trace_step_{TRAINER_PROFILE[0]}.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    found = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                    and any(p in e.get("name", "") for p in KERNEL_FUNCS[k]))
+             for k in KERNEL_FUNCS if "_train_" in k}
+    memory = next(iter(trainer.profile_memory.values()), {})
+    peak_mib = memory.get("peak_bytes_in_use", 0) / 2 ** 20
+    print(f"trainer: trace {trace_path}: {os.path.getsize(trace_path) / 2 ** 20:.2f} MiB, "
+          f"{len(events)} events, E/F kernels in it {found}; peak device memory over the "
+          f"traced step {peak_mib:.1f} MiB of {memory.get('bytes_limit', 0) / 2 ** 20:.0f}")
+    if not all(found.values()):
+        raise AssertionError(f"the trace lacks kernels of E or F: {found}")
+    record.update(trace_mib=os.path.getsize(trace_path) / 2 ** 20, trace_kernels=found,
+                  profiled_peak_mib=peak_mib)
+
+    # one eval: launches, wall and device time
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.evaluate(EVAL_STEPS[-1] + 1)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    one = {k: kernels.launch_counts()[k] for k in EVAL_PER_CALL}
+    if one != EVAL_PER_CALL:
+        raise AssertionError(f"one eval launched {one}, expected {EVAL_PER_CALL}")
+    def synth_ms(model):
+        t0 = time.perf_counter()
+        synthesize_utterance(model, trainer.val_set, 0, seed=6)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the training model's weight norms change every step, so each eval
+    # rebuilds B's, C's and D's prepared weights; a frozen copy keeps them
+    frozen = freeze_weight_norm(copy.deepcopy(trainer.model_g))
+    synth_ms(frozen)
+    frozen_ms, live_ms = synth_ms(frozen), synth_ms(trainer.model_g)
+    del frozen
+    print(f"trainer: eval synthesis {live_ms:.2f} ms on the training model, {frozen_ms:.2f} ms "
+          f"on a copy with frozen weight norms and kept kernel weights")
+    prof = {}
+    profile(torch, "one eval synthesis", lambda: synthesize_utterance(
+        trainer.model_g, trainer.val_set, 0, seed=7), 8, prof)
+
+    # the eval's audio against the plain f32 path on the CPU, and its FLOPs
+    card = synthesize_utterance(trainer.model_g, trainer.val_set, 0, noise_scale=0.0)
+    cpu = _cpu_copy(torch, trainer.model_g, Synthesizer.from_config(cfg, N_SYMBOLS))
+    cpu.dec.fused_mrf = False   # the unfolded ResBlock1 path: the model's FLOPs
+    held = []
+    t0 = time.perf_counter()
+    cost = model_cost(lambda: held.append(synthesize_utterance(
+        cpu, trainer.val_set, 0, noise_scale=0.0)))
+    plain = held[0]
+    print(f"trainer: the eval on the CPU (counted) {time.perf_counter() - t0:.2f} s")
+    if card["n_frames"] != plain["n_frames"]:
+        raise AssertionError(f"eval frames: card {card['n_frames']}, cpu {plain['n_frames']}")
+    err = float(np.abs(card["audio"] - plain["audio"]).max())
+    peak = float(np.abs(plain["audio"]).max())
+    ok = err <= 1e-3 * max(peak, 1e-3)
+    print(f"trainer: eval audio on the card vs the plain f32 path on the CPU: "
+          f"{card['n_frames']} frames, {len(card['audio'])} samples, max_abs_err {err:.3e}, "
+          f"peak {peak:.3e} (tol 1e-3 of peak) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the eval's audio disagrees with the plain path: {err}")
+    row = roofline_row(cost["flops"], cost["bytes"], live_ms, "f32", chip_peaks())
+    print(f"trainer: one eval {eval_ms:.2f} ms wall (logging included), its synthesis "
+          f"{live_ms:.2f} ms wall, {prof.get('busy_ms', 0):.2f} ms device busy under the "
+          f"profiler; launches {one}; {cost['flops'] / 1e9:.2f} GFLOP, "
+          f"{cost['bytes'] / 1e9:.3f} GB (model_cost); roofline of the synthesis (f32 peak) "
+          f"{row}; {card_line()}")
+    record.update(eval_ms=eval_ms, synth_ms=live_ms, synth_frozen_ms=frozen_ms,
+                  eval_busy_ms=prof.get("busy_ms"),
+                  eval_launches=one,
+                  eval_frames=card["n_frames"], eval_max_abs_err=err, eval_cost=cost,
+                  eval_roofline=row)
+    return {k: counts[k] for k in EVAL_PER_CALL}, trainer
+
+
+def bf16_phase(torch, cfg, trainer, record):
+    """Phase 4d: one batch of 12 of phase 4c's corpus through a TrainStep
+    for each of ``BF16_OPTIONS`` on 4c's weights, in two passes (the second
+    in the reverse order): a warm-up step, then 3 timed steps a pass (the
+    median of 6), E and F launching 5 + 5 and 14 + 14 times a step, finite
+    losses; a tail_f32 and a bf16_disc step profiled, for the scale
+    discriminator's grouped-conv input gradient in f32 and bf16.  The tail_f32 step's FLOPs
+    are counted on the CPU copy (batches 1 and 2, extrapolated to 12) for
+    its MFU against the bf16 peak."""
+    import numpy as np
+
+    from vispeech_tpu_torch.models.discriminator import MultiPeriodDiscriminator
+    from vispeech_tpu_torch.models.synthesizer import Synthesizer
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.text import N_SYMBOLS
+    from vispeech_tpu_torch.train.step import TrainStep
+    from vispeech_tpu_torch.utils.flops import chip_peaks, model_cost, roofline_row
+
+    batches = (b for _, b in trainer.batches())
+    batch = next(batches)
+    batches.close()
+    frames = batch["wav"].shape[1] // cfg.data.hop_length
+    print(f"bf16 options: batch {tuple(batch['wav'].shape[:2])} ({frames} frames, "
+          f"{batch['phonemes'].shape[1]} phonemes)")
+    per_step = {"wn_stack_train_fwd": 5, "wn_stack_train_bwd": 5,
+                "rel_attention_train_fwd": 14, "rel_attention_train_bwd": 14}
+    rows = {name: {"step_ms": []} for name, _ in BF16_OPTIONS}
+    # two passes, the second in the reverse order, 3 timed steps an option each
+    for order in (BF16_OPTIONS, BF16_OPTIONS[::-1]):
+        for name, change in order:
+            c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **change))
+            step = TrainStep(c, trainer.model_g, trainer.model_d, trainer.steps_per_epoch)
+            step(batch)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            times, metrics = [], None
+            for _ in range(3):
+                t0 = time.perf_counter()
+                metrics = step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            counts = kernels.launch_counts()
+            bad = [k for k, v in metrics.items() if not np.isfinite(float(v))]
+            want = {k: 3 * v for k, v in per_step.items()}
+            stages = trainer.model_g.bf16_stages or (
+                "(whole graph)" if c.train.fp16_run else "none")
+            print(f"  {name}: bf16 stages {stages}, discriminators {str(step.d_dtype)[6:]}: "
+                  f"steps {[round(t, 2) for t in times]} ms; g="
+                  f"{float(metrics['loss/g/total']):.3f} d={float(metrics['loss/d/total']):.3f}"
+                  f"; E/F launches { {k: counts[k] for k in per_step} }")
+            if bad:
+                raise AssertionError(f"{name}: non-finite metrics {bad}")
+            if {k: counts[k] for k in per_step} != want:
+                raise AssertionError(f"{name}: E/F launches {counts} != {want}")
+            rows[name]["step_ms"] += times
+            if name in ("tail_f32", "bf16_disc") and order is BF16_OPTIONS:
+                rows[name]["profile"] = {}
+                profile(torch, f"{name} step ({frames} frames)", lambda: step(batch), 12,
+                        rows[name]["profile"], {"grouped dgrad": "dgrad2d_grouped"})
+            del step
+    for name, row in rows.items():
+        row["median_ms"] = float(np.median(row["step_ms"]))
+    grouped = {k: rows[k]["profile"].get("matched", {}).get("grouped dgrad", "not measured")
+               for k in ("tail_f32", "bf16_disc")}
+    print("bf16 options: median of 6 steps, ms: " + ", ".join(
+        f"{k} {r['median_ms']:.2f}" for k, r in rows.items())
+        + f"; the scale discriminator's grouped-conv input gradient (ms, launches): f32 "
+        f"{grouped['tail_f32']}, bf16 {grouped['bf16_disc']}; {card_line()}")
+    trainer.model_g.bf16_stages = cfg.train.effective_bf16_stages()
+
+    # FLOPs of a tail_f32 step, counted on CPU copies at batches 1 and 2
+    def cost_at(b):
+        g = _cpu_copy(torch, trainer.model_g, Synthesizer.from_config(cfg, N_SYMBOLS))
+        d = _cpu_copy(torch, trainer.model_d, MultiPeriodDiscriminator())
+        step = TrainStep(cfg, g, d, trainer.steps_per_epoch, tf32=False)
+        sub = {k: None if v is None else v[:b].cpu() for k, v in batch.items()}
+        return model_cost(step, sub)
+
+    t0 = time.perf_counter()
+    cost = _affine_cost(cost_at)
+    ms = rows["tail_f32"]["median_ms"]
+    row = roofline_row(cost["flops"], cost["bytes"], ms, "bf16", chip_peaks())
+    print(f"bf16 options: a tail_f32 step of batch 12 at {frames} frames: "
+          f"{cost['flops'] / 1e9:.2f} GFLOP, {cost['bytes'] / 1e9:.3f} GB (model_cost on the "
+          f"CPU at batches 1 and 2, {time.perf_counter() - t0:.2f} s); roofline (bf16 peak) "
+          f"{row}; {card_line()}")
+    record.update(options=rows, step_frames=frames, step_cost=cost, step_roofline=row)
+
+
 def seeded_state_dict(torch, cfg) -> dict:
     """The serving phases' weights: drawn from ``SEED`` at the config's
     width, the duration head biased, since random weights predict
@@ -2033,6 +2331,17 @@ def main() -> int:
         try:
             train_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), root,
                         rec)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"root": ROOT, "card": card_line(), **rec}))
+        return 0
+    if sys.argv[1:] == ["--trainer"]:
+        rec = {}
+        root = tempfile.mkdtemp(prefix="vispeech_trainer_")
+        try:
+            cfg = load_config(os.path.join(ROOT, "configs", "config.json"))
+            _, trainer = trainer_phase(torch, cfg, root, rec)
+            bf16_phase(torch, cfg, trainer, rec)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"root": ROOT, "card": card_line(), **rec}))
@@ -2109,11 +2418,20 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     train_reference(torch, cfg)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vispeech_trainer_")
+    try:
+        trainer_counts, trainer = trainer_phase(torch, cfg, root, {})
+        bf16_phase(torch, cfg, trainer, {})
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
-    # A, B, C and D count the serving run, the VC run, the text phase and the
-    # HTTP phase; the training run E and F
+    # A, B, C and D count the serving run, the VC run, the text phase, the
+    # HTTP phase and the trainer's evals; the training run E and F
     counts = {k: v + vc_counts[k] + text_counts[k] + http_counts[k]
-              for k, v in counts.items()}
+              + trainer_counts.get(k, 0) for k, v in counts.items()}
     counts.update({k: v for k, v in train_counts.items() if "_train_" in k})
     kernels = [dict(name=name, route="cuda",
                     source=f"vispeech_tpu_torch/csrc/{name.rsplit('_', 1)[0] if '_train_' in name else name}.cu",

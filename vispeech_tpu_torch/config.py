@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field, fields
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 
 def _freeze(value):
@@ -38,6 +38,34 @@ class TrainConfig:
     bf16_allow_divergent: bool = False
     bf16_only: Tuple[str, ...] = ()
     bf16_disc: bool = False
+
+    def effective_bf16_stages(self) -> Tuple[str, ...]:
+        """The generator stages that compute in bf16 (``Synthesizer.
+        bf16_stages`` and the step's parameter casts); empty for f32 and for
+        the whole-graph scopes ``stable`` and ``full``.  An unknown scope
+        raises, and so does a whole-graph scope without
+        ``bf16_allow_divergent``: both scopes collapse GAN training."""
+        if not self.fp16_run:
+            return ()
+        if self.bf16_only:
+            return tuple(self.bf16_only)
+        if self.bf16_scope == "tail_f32":
+            return ("enc_p", "heads", "fpn", "project", "enc_q", "flow",
+                    "dec_body")
+        if self.bf16_scope not in ("stable", "full"):
+            raise ValueError(
+                f"unknown bf16_scope {self.bf16_scope!r} "
+                "(expected 'tail_f32', 'stable', or 'full')")
+        if not self.bf16_allow_divergent:
+            raise ValueError(
+                f"bf16_scope={self.bf16_scope!r} is a legacy whole-graph "
+                "cast KNOWN to collapse GAN training (round-4 stage "
+                "localization, benchmarks/artifacts/bf16_diag/ANALYSIS.md; "
+                "collapse onset @120-770 steps). Use the converging default "
+                "bf16_scope='tail_f32', or set bf16_allow_divergent=true to "
+                "run it anyway for diagnostics/A-B reproduction.")
+        return ()
+
     lr_decay: float = 0.999875
     segment_size: int = 16384
     init_lr_ratio: float = 1.0
@@ -105,6 +133,24 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     extra: Tuple[Tuple[str, Any], ...] = ()
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The JSON form ``load_config`` reads back into an equal Config."""
+        def unfreeze(v):
+            if isinstance(v, tuple):
+                if v and all(isinstance(e, tuple) and len(e) == 2 and isinstance(e[0], str)
+                             for e in v):
+                    return {k: unfreeze(x) for k, x in v}
+                return [unfreeze(e) for e in v]
+            return v
+
+        out = {}
+        for section in ("train", "data", "model"):
+            cfg = getattr(self, section)
+            out[section] = {f.name: unfreeze(getattr(cfg, f.name)) for f in fields(cfg)}
+        for k, v in self.extra:
+            out[k] = unfreeze(v)
+        return out
+
 
 def _build_section(cls, raw: Mapping[str, Any]):
     known = {f.name for f in fields(cls)}
@@ -126,3 +172,8 @@ def load_config(path: str) -> Config:
     """Load a reference-format JSON config file."""
     with open(path, "r", encoding="utf-8") as f:
         return config_from_dict(json.load(f))
+
+
+def save_config(cfg: Config, path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(cfg.to_dict(), f, ensure_ascii=False, indent=2)

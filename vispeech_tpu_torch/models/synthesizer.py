@@ -11,7 +11,8 @@ pitch and energy and their losses, the posterior encoder on the linear
 spectrogram, the couplings forward (z → z_p) and the generator on a random
 segment of z.  ``bf16_stages`` names the stages whose compute runs in
 bf16 (``_stage``: float inputs cast to bf16 at the boundary, float outputs
-back to f32), as the JAX package's ``tail_f32`` scope does.  Parameter
+back to f32), as the JAX package's do; the decoder is stage ``dec_body``
+(bf16 body, f32 conv_post and tanh) or ``dec``.  Parameter
 names follow the reference ``SynthesizerTrn`` state dict.  The public
 methods take and return the JAX package's [B, T, C] layout.
 
@@ -245,7 +246,10 @@ class Synthesizer(nn.Module):
 
     def _speaker(self, sid):
         if self.n_speakers > 1 and sid is not None:
-            return self.emb_g(sid)[:, None, :]
+            g = self.emb_g(sid)[:, None, :]
+            # between stages activations are f32: an embedding cast by name
+            # (bf16_only) reaches f32 modules, where flax would promote it
+            return g.float() if self.bf16_stages else g
         return None
 
     def _stage(self, name: str, fn, *args, **kw):
@@ -303,8 +307,16 @@ class Synthesizer(nn.Module):
                                                  generator, ids=ids_slice)
         # kernel C has no backward: training decodes every stage with the
         # plain ResBlock1, as the JAX trainer's folded_narrow path computes
-        o = self._stage("dec_body", partial(self.dec, fused=False, tail_f32=True),
-                        z_slice, g=g)
+        if "dec_body" in self.bf16_stages:
+            o = self._stage("dec_body", partial(self.dec, fused=False, tail_f32=True),
+                            z_slice, g=g)
+        else:
+            # A whole-graph scope hands bf16 activations to the decoder; flax
+            # computes an op in the promotion of its input's and parameters'
+            # dtypes, where the port's layers would cast their weights down
+            dtype = torch.promote_types(z_slice.dtype, self.dec.conv_pre.weight.dtype)
+            o = self._stage("dec", partial(self.dec, fused=False),
+                            *_cast_floats((z_slice, g), dtype))
         return (o, l_length, l_pitch, l_energy, ids_slice, frame_mask, y_mask,
                 (z, z_p, m_p, logs_p, m_q, logs_q), pred_f0, pred_norm_energy, norm_energy)
 

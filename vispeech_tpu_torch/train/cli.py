@@ -1,12 +1,14 @@
 """Training CLI:
 
     python -m vispeech_tpu_torch.train.cli -c configs/config.json \\
-        --data-root DIR --max-steps N [--device cpu] [-m SAVE_DIR]
+        --data-root DIR --max-steps N [--device cpu] [-m SAVE_DIR] \\
+        [--profile START:STOP]
 
 Trains on the GPU unless ``--device cpu``; resumes from the newest
 checkpoint in the save directory (the port's ``ckpt_*.pt``, else a JAX
-``ckpt_*.npz``).  ``--model-parallel`` > 1 and ``--profile`` are refused:
-they wait in ``ROADMAP.md`` queue 1.
+``ckpt_*.npz``).  ``--profile START:STOP`` writes a Chrome trace of the
+steps [START, STOP) into ``SAVE_DIR/profile``.  ``--model-parallel`` > 1
+is refused: the multi-GPU mesh waits in ``ROADMAP.md`` queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -23,13 +25,19 @@ def main(argv=None):
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--model-parallel", type=int, default=1)
-    p.add_argument("--profile", default=None, metavar="START:STOP")
+    p.add_argument("--profile", default=None, metavar="START:STOP",
+                   help="trace steps [START, STOP) into save_dir/profile (a Chrome trace "
+                        "for Perfetto or chrome://tracing)")
     args = p.parse_args(argv)
     if args.model_parallel != 1:
         p.error("--model-parallel > 1 (the data × model mesh) is not ported yet: "
                 "ROADMAP.md queue 1 item 7")
+    profile_steps = None
     if args.profile:
-        p.error("--profile is not ported yet: ROADMAP.md queue 1 item 9")
+        lo, sep, hi = args.profile.partition(":")
+        if not sep or not lo.isdigit() or not hi.isdigit():
+            p.error("--profile expects START:STOP (two integers)")
+        profile_steps = (int(lo), int(hi))
 
     from vispeech_tpu_torch.config import load_config
     from vispeech_tpu_torch.train.loop import Trainer
@@ -40,7 +48,7 @@ def main(argv=None):
                                                                  save_dir=args.model_dir))
     trainer = Trainer(cfg, data_root=args.data_root, device=args.device)
     trainer.resume()
-    trainer.train(max_steps=args.max_steps)
+    trainer.train(max_steps=args.max_steps, profile_steps=profile_steps)
 
 
 if __name__ == "__main__":

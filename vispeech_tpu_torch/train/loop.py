@@ -2,19 +2,26 @@
 
 ``Trainer``: filelist data with bucketed batches, collated on a thread into
 pinned memory and copied one batch ahead; ``TrainStep`` (one GAN step);
-``log_interval`` scalars through ``logging`` (``train.log`` in the save
-directory); a checkpoint every ``eval_interval`` steps, at ``max_steps``
-and on SIGTERM; ``train_stats.json`` at the end.  ``resume`` restores the
-newest ``ckpt_*.pt``, or, when there is none, continues the JAX package's
-newest ``ckpt_*.npz`` (``utils/jax_weights.py``).
+the run directory holds ``config.json`` (which ``TTSEngine.
+from_checkpoint`` reads beside the checkpoints), ``githash``,
+``train.log``, TensorBoard scalars in ``tb/`` every ``log_interval`` steps
+(the step's metrics, ``lr`` and ``steps_per_sec``) and eval outputs in
+``tb_eval/`` every ``eval_interval`` steps: the first validation
+utterance synthesized (``evaluate``), its mel, F0 and audio, before a
+checkpoint.  Checkpoints also at ``max_steps`` and on SIGTERM;
+``train_stats.json`` at the end.  ``train(profile_steps=(lo, hi))``
+traces steps [lo, hi) into ``save_dir/profile`` (a Chrome trace) and logs
+the device's peak memory over them.  ``resume`` restores the newest
+``ckpt_*.pt``, or, when there is none, continues the JAX package's newest
+``ckpt_*.npz`` (``utils/jax_weights.py``).
 
-Not ported yet (``ROADMAP.md`` queue 1): the data × model mesh (the CLI
-refuses ``--model-parallel`` > 1), the profiler trace, and the TensorBoard
-scalars and eval images (the loop says so in its log once).
+Not ported yet: the data × model mesh (``ROADMAP.md`` queue 1 item 7; the
+CLI refuses ``--model-parallel`` > 1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -27,31 +34,54 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from vispeech_tpu_torch.config import Config
+from vispeech_tpu_torch.config import Config, save_config
 from vispeech_tpu_torch.data.dataset import (
     BucketSampler,
     FilelistDataset,
     bucket_phoneme_budgets,
+    collate,
     data_loader,
     device_batches,
 )
+from vispeech_tpu_torch.dsp import mel_spectrogram, spec_to_mel
 from vispeech_tpu_torch.models.discriminator import MultiPeriodDiscriminator
 from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
-from vispeech_tpu_torch.ops.policy import resolve_device
+from vispeech_tpu_torch.ops.policy import FLOAT32, resolve_device
 from vispeech_tpu_torch.text import N_SYMBOLS
 from vispeech_tpu_torch.train.step import TrainStep, learning_rate
+from vispeech_tpu_torch.utils import TrainLogger, check_git_hash, get_logger
 from vispeech_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
+from vispeech_tpu_torch.utils.profiling import device_memory_stats, trace
 
 logger = logging.getLogger("vispeech_tpu_torch")
 
+EVAL_NOISE_SCALE = 0.667
 
-def _file_logger(save_dir: str) -> None:
-    path = os.path.abspath(os.path.join(save_dir, "train.log"))
-    if not any(getattr(h, "baseFilename", None) == path for h in logger.handlers):
-        handler = logging.FileHandler(path)
-        handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
-        logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
+
+def synthesize_utterance(model: Synthesizer, dataset: FilelistDataset, index: int = 0,
+                         t_frames: int = 1024, noise_scale: float = EVAL_NOISE_SCALE,
+                         seed: int = 0) -> dict:
+    """``model.infer`` on utterance ``index`` of ``dataset``, collated at a
+    frame budget of ``min(t_frames, 1400)`` on the model's device, in f32
+    with TF32 off, the prior noise drawn from a ``torch.Generator`` seeded
+    with ``seed`` (no other random stream is touched).  → {"audio": the
+    waveform cut to the synthesized frames × hop, "n_frames", "f0" (the
+    predicted phoneme F0 [Hz]), "batch": the collated numpy batch}."""
+    device = next(model.parameters()).device
+    raw = collate(dataset, [index], frame_budget=min(t_frames, 1400), device_dsp=False)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    with FLOAT32.precision():
+        audio, frame_mask, _, _, f0, _ = model.infer(
+            dev(raw["phonemes"]), dev(raw["phoneme_lengths"]), raw["spec"].shape[1],
+            sid=dev(raw["sid"]), noise_scale=noise_scale, generator=generator)
+    n_frames = int(frame_mask.sum())
+    hop = dataset.cfg.hop_length
+    return {"audio": audio[0, :n_frames * hop, 0].float().cpu().numpy(), "n_frames": n_frames,
+            "f0": f0[0].float().cpu().numpy(), "batch": raw}
 
 
 class Trainer:
@@ -62,20 +92,23 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.save_dir = cfg.train.save_dir
-        os.makedirs(self.save_dir, exist_ok=True)
-        _file_logger(self.save_dir)
+        get_logger(self.save_dir)
+        save_config(cfg, os.path.join(self.save_dir, "config.json"))
+        check_git_hash(self.save_dir)
+        self.tb = TrainLogger(os.path.join(self.save_dir, "tb"))
+        self.tb_eval = TrainLogger(os.path.join(self.save_dir, "tb_eval"))
         torch.manual_seed(cfg.train.seed)   # nn.Dropout's stream
 
         self.train_set = FilelistDataset(cfg.data.training_files, cfg.data, data_root)
+        self.val_set = FilelistDataset(cfg.data.validation_files, cfg.data, data_root)
         self.sampler = BucketSampler(self.train_set.lengths, cfg.train.batch_size,
                                      seed=cfg.train.seed)
         self.steps_per_epoch = max(len(self.sampler), 1)
         self.phoneme_budgets = bucket_phoneme_budgets(self.train_set, self.sampler)
-        logger.info("train: %d utterances, %d steps/epoch, device %s, buckets (T → N) %s",
-                    len(self.train_set), self.steps_per_epoch, self.device,
+        logger.info("train: %d utterances, val: %d utterances, %d steps/epoch, device %s, "
+                    "buckets (T → N) %s", len(self.train_set), len(self.val_set),
+                    self.steps_per_epoch, self.device,
                     {self.sampler.buckets[b]: n for b, n in self.phoneme_budgets.items()})
-        logger.warning("TensorBoard scalars, eval synthesis and images are not ported yet "
-                       "(ROADMAP.md queue 1 item 9): scalars go to this log only")
 
         seed = cfg.train.seed
         self.model_g = random_init_(Synthesizer.from_config(cfg, N_SYMBOLS), seed)
@@ -85,6 +118,9 @@ class Trainer:
         self.step_fn = TrainStep(cfg, self.model_g, self.model_d, self.steps_per_epoch)
         self._checkpointer = AsyncCheckpointer(keep=2)
         self._stop_requested = False
+        self._trace: Optional[contextlib.ExitStack] = None
+        # each device's memory at the end of the last trace (peak: over it)
+        self.profile_memory: dict = {}
         self.shapes_seen: set = set()
         # (frames, host seconds to enqueue the step): the device runs behind
         self.step_times: deque = deque(maxlen=50_000)
@@ -142,7 +178,10 @@ class Trainer:
     def _save(self, step: int) -> None:
         self._checkpointer.save(self.save_dir, self.state_dict(), step)
 
-    def train(self, max_steps: Optional[int] = None) -> None:
+    def train(self, max_steps: Optional[int] = None,
+              profile_steps: Optional[Tuple[int, int]] = None) -> None:
+        """Train up to ``max_steps``; ``profile_steps=(lo, hi)`` traces the
+        steps [lo, hi) into ``save_dir/profile``."""
         self._stop_requested = False
         old = None
         try:
@@ -150,12 +189,34 @@ class Trainer:
         except ValueError:  # not the main thread
             pass
         try:
-            self._loop(max_steps)
+            self._loop(max_steps, profile_steps)
         finally:
             if old is not None:
                 signal.signal(signal.SIGTERM, old)
+            self._stop_profile()
             self._checkpointer.wait()
+            self.tb.flush()
+            self.tb_eval.flush()
             self._write_stats()
+
+    def _start_profile(self, step: int) -> None:
+        if self._trace is None:
+            if self.device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(self.device)
+            self._trace = contextlib.ExitStack()
+            self._trace.enter_context(trace(os.path.join(self.save_dir, "profile"), step))
+            logger.info("profiler trace started at step %d -> %s/profile", step, self.save_dir)
+
+    def _stop_profile(self) -> None:
+        if self._trace is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._trace.close()
+            self._trace = None
+            self.profile_memory = device_memory_stats()
+            for dev, s in self.profile_memory.items():
+                logger.info("profiler trace stopped; %s peak memory %.1f MiB / %.1f MiB",
+                            dev, s["peak_bytes_in_use"] / 2**20, s["bytes_limit"] / 2**20)
 
     def batches(self, start_epoch: int = 0) -> Iterator[Tuple[int, dict]]:
         """(epoch, batch on the device), epoch after epoch from
@@ -170,7 +231,7 @@ class Trainer:
             finally:
                 host.close()   # stops the loader's thread when the consumer stops early
 
-    def _loop(self, max_steps: Optional[int]) -> None:
+    def _loop(self, max_steps: Optional[int], profile_steps) -> None:
         cfg = self.cfg
         start_epoch = self.global_step // self.steps_per_epoch
         logger.info("starting at step %d (epoch %d)", self.global_step, start_epoch)
@@ -178,6 +239,11 @@ class Trainer:
         with closing(self.batches(start_epoch)) as batches:
             for epoch, batch in batches:
                 step = self.global_step
+                if profile_steps is not None:
+                    if step >= profile_steps[1]:
+                        self._stop_profile()
+                    elif step >= profile_steps[0]:
+                        self._start_profile(step)
                 if self._stop_requested or (max_steps is not None and step >= max_steps):
                     if self._stop_requested:
                         logger.info("stop requested: saving at step %d", step)
@@ -196,15 +262,58 @@ class Trainer:
                     dt = time.time() - t0
                     t0 = time.time()
                     m = {k: float(v) for k, v in metrics.items()}
+                    m["lr"] = learning_rate(cfg, step, self.steps_per_epoch)
+                    m["steps_per_sec"] = cfg.train.log_interval / max(dt, 1e-9)
+                    self.tb.scalars(step, m)
                     logger.info(
                         "epoch %d step %d: g=%.3f d=%.3f mel=%.3f kl=%.3f lr=%.3g "
                         "(%.2f steps/s)", epoch, step, m["loss/g/total"], m["loss/d/total"],
-                        m["loss/g/mel"], m["loss/g/kl"],
-                        learning_rate(cfg, step, self.steps_per_epoch),
-                        cfg.train.log_interval / max(dt, 1e-9))
+                        m["loss/g/mel"], m["loss/g/kl"], m["lr"], m["steps_per_sec"])
                 if step % cfg.train.eval_interval == 0:
+                    self.evaluate(step)
                     self._save(step)
         self._save(self.global_step)
+
+    def evaluate(self, step: int, t_frames: int = 1024) -> Optional[dict]:
+        """Synthesize the first validation utterance at noise scale 0.667,
+        the prior noise seeded by ``step`` (the training streams untouched),
+        and log to ``tb_eval``: the generated and ground-truth audio, and
+        where the writer records images (tensorboardX) and matplotlib can
+        be imported, the ground-truth and generated mels and the F0 plot.
+        → ``synthesize_utterance``'s dict, None without a validation set."""
+        if len(self.val_set) == 0:
+            return None
+        d = self.cfg.data
+        out = synthesize_utterance(self.model_g, self.val_set, 0, t_frames, seed=step)
+        raw = out["batch"]
+        if self.tb_eval.records_media:
+            try:
+                self._eval_images(step, out)
+            except ImportError as e:   # matplotlib is optional
+                logger.warning("eval @ step %d: no images (%s)", step, e)
+        self.tb_eval.audio(step, "eval/audio_gen", out["audio"], d.sampling_rate)
+        gt_wav = raw["wav"][0, :int(raw["wav_lengths"][0]), 0]
+        self.tb_eval.audio(step, "eval/audio_gt", gt_wav, d.sampling_rate)
+        self.tb_eval.flush()
+        logger.info("eval @ step %d: %d frames synthesized", step, out["n_frames"])
+        return out
+
+    def _eval_images(self, step: int, out: dict) -> None:
+        from vispeech_tpu_torch.utils.plotting import line_plot_image, spectrogram_image
+
+        d, raw = self.cfg.data, out["batch"]
+        gt_spec = torch.from_numpy(raw["spec"][:1, :int(raw["spec_lengths"][0])])
+        gt_mel = spec_to_mel(gt_spec, d.filter_length, d.n_mel_channels, d.sampling_rate,
+                             d.mel_fmin, d.mel_fmax)[0].numpy()
+        gen_mel = mel_spectrogram(torch.from_numpy(out["audio"][None]), d.filter_length,
+                                  d.n_mel_channels, d.sampling_rate, d.hop_length,
+                                  d.win_length, d.mel_fmin, d.mel_fmax)[0].numpy()
+        n_ph = int(raw["phoneme_lengths"][0])
+        self.tb_eval.image(step, "eval/mel_gt", spectrogram_image(gt_mel) / 255.0)
+        self.tb_eval.image(step, "eval/mel_gen", spectrogram_image(gen_mel) / 255.0)
+        self.tb_eval.image(step, "eval/f0", line_plot_image(
+            [raw["f0"][0, :n_ph], out["f0"][:n_ph]], ["gt", "pred"],
+            title="phoneme F0 (Hz)") / 255.0)
 
     def _write_stats(self) -> None:
         by_bucket: dict = {}

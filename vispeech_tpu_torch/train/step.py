@@ -5,13 +5,22 @@ is kept; the discriminator update on its detached output; then the
 generator loss against the *updated* discriminator, backpropagated through
 the saved graph (no second generator forward).
 
-Precision (``train.fp16_run``): the ``tail_f32`` scope.  The generator's
-stages compute in bf16 (``Synthesizer._stage``) with their parameters cast
-to bf16 by ``g_param_cast`` inside the differentiated call, so gradients,
-master weights and optimizer state stay f32; the decoder's conv_post and
-tanh, the speaker embedding, the discriminators and every loss stay f32.
-The legacy ``stable`` and ``full`` scopes, ``bf16_only`` and ``bf16_disc``
-are not ported (``ROADMAP.md`` queue 1) and raise.
+Precision (``train.fp16_run``), the JAX step's cast rules:
+``cfg.train.effective_bf16_stages()`` names the generator stages that
+compute in bf16 (``Synthesizer._stage``: float inputs cast to bf16 at the
+boundary, outputs back to f32).  ``g_param_cast`` casts the parameters of
+those stages' modules to bf16 inside the differentiated call, so
+gradients, master weights and optimizer state stay f32.  ``tail_f32``
+(the default scope) is every stage with the decoder as ``dec_body``, its
+conv_post and tanh f32; ``bf16_only`` lists the stages (``dec`` casts the
+whole decoder, ``dec_body`` all but conv_post), or raw module names.  The
+whole-graph scopes ``stable`` (every module but the decoder) and ``full``
+(everything) have no stage boundaries: their batch's f0, energy and spec
+are cast to bf16 as well, and the Synthesizer promotes the decoder's
+inputs to its parameters' dtype where they differ, as flax does.  The
+discriminators, their parameters and both of their inputs are bf16 under
+``bf16_disc`` and under ``full``; else f32.  The generator's outputs are
+cast to f32 before any loss, and every loss is f32.
 
 TF32: the JAX package trains its f32 products at the TPU's default
 one-pass bf16 precision; TF32 in cuDNN and cuBLAS is the port's counterpart
@@ -41,9 +50,8 @@ from vispeech_tpu_torch.dsp import mel_spectrogram, spec_to_mel, spectrogram
 from vispeech_tpu_torch.ops.masking import grad_global_norm, length_mask, slice_segments
 from vispeech_tpu_torch.train import losses as L
 
-TAIL_F32_STAGES = ("enc_p", "heads", "fpn", "project", "enc_q", "flow", "dec_body")
-
-# stage → the generator's top-level modules whose parameters it casts
+# stage (``Synthesizer.bf16_stages``) → the generator's top-level modules
+# whose parameters it casts
 STAGE_PARAM_KEYS = {
     "enc_p": ("enc_p",),
     "heads": ("duration_predictor", "pitch_predictor", "energy_predictor",
@@ -52,37 +60,52 @@ STAGE_PARAM_KEYS = {
     "project": ("project",),
     "enc_q": ("enc_q",),
     "flow": ("flow",),
+    "dec": ("dec",),
+    # the decoder with an f32 tail: conv_post (and tanh) stay f32
     "dec_body": ("dec",),
 }
 
-def train_bf16_stages(cfg: Config) -> Tuple[str, ...]:
-    """The generator stages that compute in bf16 under ``cfg.train``."""
-    t = cfg.train
-    if not t.fp16_run:
-        return ()
-    if t.bf16_only or t.bf16_disc or t.bf16_scope != "tail_f32":
-        raise ValueError(
-            f"fp16_run with bf16_scope={t.bf16_scope!r}, bf16_only={t.bf16_only!r}, "
-            f"bf16_disc={t.bf16_disc}: only the tail_f32 scope is ported; the legacy "
-            f"'stable'/'full' scopes, bf16_only and bf16_disc wait in ROADMAP.md queue 1")
-    return TAIL_F32_STAGES
-
 
 def g_param_cast(cfg: Config):
-    """fn(name, parameter) → the tensor the generator's forward uses: bf16
-    for the modules of the bf16 stages (the decoder's conv_post excepted),
-    the f32 parameter itself otherwise.  None when nothing is cast."""
-    stages = train_bf16_stages(cfg)
-    if not stages:
+    """fn(name, parameter) → the tensor the generator's forward uses under
+    ``cfg.train``: the parameter cast to bf16 or the f32 parameter itself,
+    by ``vispeech_tpu/train/step.py:104-140``'s rules.  None when
+    ``fp16_run`` is off.  Raises what ``effective_bf16_stages`` raises."""
+    t = cfg.train
+    if not t.fp16_run:
         return None
-    keys = {k for s in stages for k in STAGE_PARAM_KEYS[s]}
+    stages = t.effective_bf16_stages()
+    if stages:
+        keys = {k for s in stages for k in STAGE_PARAM_KEYS.get(s, (s,))}
+        dec_tail_f32 = "dec_body" in stages
+
+        def cast_module(k: str) -> bool:
+            return k in keys
+    else:
+        dec_tail_f32 = False
+        full = t.bf16_scope == "full"
+
+        def cast_module(k: str) -> bool:
+            return full or k != "dec"
 
     def cast(name: str, p: torch.Tensor) -> torch.Tensor:
-        if name.split(".", 1)[0] in keys and not name.startswith("dec.conv_post."):
-            return p.to(torch.bfloat16)
-        return p
+        if not cast_module(name.split(".", 1)[0]):
+            return p
+        if dec_tail_f32 and name.startswith("dec.conv_post."):
+            return p
+        return p.to(torch.bfloat16)
 
     return cast
+
+
+def d_dtype(cfg: Config) -> torch.dtype:
+    """The discriminators' compute dtype: bf16 under ``fp16_run`` with
+    ``bf16_disc``, or with the ``full`` scope and no ``bf16_only``."""
+    t = cfg.train
+    if t.fp16_run and ((t.bf16_scope == "full" and not t.effective_bf16_stages())
+                       or t.bf16_disc):
+        return torch.bfloat16
+    return torch.float32
 
 
 def g_freeze_keys(cfg: Config) -> Tuple[str, ...]:
@@ -141,8 +164,14 @@ class TrainStep:
         self.steps_per_epoch = steps_per_epoch
         device = next(model_g.parameters()).device
         self.tf32 = device.type == "cuda" if tf32 is None else tf32
-        model_g.bf16_stages = train_bf16_stages(cfg)
+        model_g.bf16_stages = cfg.train.effective_bf16_stages()
         self.cast = g_param_cast(cfg)
+        self.d_dtype = d_dtype(cfg)
+        # oneDNN's bf16 grouped-conv weight gradient on the CPU reads memory
+        # it never wrote when the input is shorter than the kernel's reach
+        # (the scale discriminator's 256-group conv on segments under 512
+        # samples): NaN at random.  The CPU's native kernels have no such fault.
+        self.native_cpu_convs = device.type == "cpu" and self.d_dtype == torch.bfloat16
         self.opt_g = make_optimizer(cfg, model_g, g_freeze_keys(cfg))
         self.opt_d = make_optimizer(cfg, model_d)
         seed = cfg.train.seed
@@ -152,18 +181,36 @@ class TrainStep:
 
     def generator_forward(self, batch: Dict, spec, eps_q=None, ids_slice=None):
         """The Synthesizer's training forward, parameters cast as the
-        precision scope says, graph kept."""
-        args = (batch["phonemes"], batch["phoneme_lengths"], batch["f0"], batch["energy"],
+        precision scope says, graph kept; its float outputs in f32."""
+        f0, energy = batch["f0"], batch["energy"]
+        if self.cast is not None and not self.model_g.bf16_stages:
+            # whole-graph scopes: no stage boundary casts the batch
+            f0, energy, spec = (x.to(torch.bfloat16) for x in (f0, energy, spec))
+        args = (batch["phonemes"], batch["phoneme_lengths"], f0, energy,
                 batch["duration"], spec, batch["spec_lengths"], batch["sid"])
         kw = dict(generator=self.generator, seed_generator=self.seed_generator, eps_q=eps_q,
                   ids_slice=ids_slice)
         if self.cast is None:
             return self.model_g(*args, **kw)
         params = {n: self.cast(n, p) for n, p in self.model_g.named_parameters()}
-        return torch.func.functional_call(self.model_g, params, args, kw)
+        out = torch.func.functional_call(self.model_g, params, args, kw)
+        y_hat, l_length, l_pitch, l_energy, ids, x_mask, y_mask, latents, *rest = out
+        return (y_hat.float(), l_length.float(), l_pitch.float(), l_energy.float(), ids,
+                x_mask, y_mask, tuple(x.float() for x in latents), *rest)
+
+    def discriminate(self, y, y_hat):
+        """The discriminators on (real, generated), parameters and inputs in
+        ``d_dtype``."""
+        if self.d_dtype == torch.float32:
+            return self.model_d(y, y_hat)
+        params = {n: p.to(self.d_dtype) for n, p in self.model_d.named_parameters()}
+        return torch.func.functional_call(
+            self.model_d, params, (y.to(self.d_dtype), y_hat.to(self.d_dtype)))
 
     def __call__(self, batch: Dict, eps_q=None, ids_slice=None) -> Dict[str, torch.Tensor]:
-        with tf32_mode(self.tf32):
+        native = (torch.backends.mkldnn.flags(enabled=False) if self.native_cpu_convs
+                  else contextlib.nullcontext())
+        with tf32_mode(self.tf32), native:
             return self._step(batch, eps_q, ids_slice)
 
     def _step(self, batch, eps_q, ids_slice):
@@ -186,7 +233,7 @@ class TrainStep:
             batch, spec, eps_q, ids_slice)
         wav_slice = slice_segments(wav, ids * d.hop_length, seg)
 
-        logits_r, logits_g, _, _ = self.model_d(wav_slice, y_hat.detach())
+        logits_r, logits_g, _, _ = self.discriminate(wav_slice, y_hat.detach())
         loss_d, _, _ = L.discriminator_loss(logits_r, logits_g)
         self.opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
@@ -197,22 +244,22 @@ class TrainStep:
         y_mel = slice_segments(spec_to_mel(spec, d.filter_length, d.n_mel_channels,
                                            d.sampling_rate, d.mel_fmin, d.mel_fmax),
                                ids, seg // d.hop_length)
-        y_hat_mel = mel_spectrogram(y_hat[..., 0].float(), d.filter_length, d.n_mel_channels,
+        y_hat_mel = mel_spectrogram(y_hat[..., 0], d.filter_length, d.n_mel_channels,
                                     d.sampling_rate, d.hop_length, d.win_length, d.mel_fmin,
                                     d.mel_fmax)
         self.model_d.requires_grad_(False)
         try:
-            _, logits_g, fmap_r, fmap_g = self.model_d(wav_slice, y_hat)
+            _, logits_g, fmap_r, fmap_g = self.discriminate(wav_slice, y_hat)
         finally:
             self.model_d.requires_grad_(True)
         metrics = {
             "loss/g/gen": L.generator_loss(logits_g)[0],
             "loss/g/fm": L.feature_loss(fmap_r, fmap_g),
             "loss/g/mel": torch.mean(torch.abs(y_mel - y_hat_mel)) * cfg.train.c_mel,
-            "loss/g/dur": l_length.float(),
+            "loss/g/dur": l_length,
             "loss/g/kl": L.kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * cfg.train.c_kl,
-            "loss/g/pitch": l_pitch.float(),
-            "loss/g/energy": l_energy.float(),
+            "loss/g/pitch": l_pitch,
+            "loss/g/energy": l_energy,
         }
         total = sum(metrics.values())
         self.opt_g.zero_grad(set_to_none=True)

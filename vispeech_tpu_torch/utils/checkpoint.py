@@ -59,6 +59,19 @@ def to_host(obj: Any) -> Any:
     return obj
 
 
+def save_checkpoint(base_dir: str, state: Dict, step: int, keep: int = 2) -> str:
+    """Write ``state`` to ``ckpt_{step}.pt`` (renamed into place when
+    whole), then prune to the newest ``keep``; → the path."""
+    path = checkpoint_path(base_dir, step)
+    os.makedirs(os.path.abspath(base_dir), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    logger.info("saved checkpoint at step %d -> %s", step, path)
+    prune_checkpoints(base_dir, keep)
+    return path
+
+
 def load_checkpoint(base_dir: str, step: Optional[int] = None) -> Optional[Dict]:
     """The state saved at ``step`` (default: the latest), or None."""
     step = latest_checkpoint_step(base_dir) if step is None else step
@@ -80,12 +93,7 @@ class AsyncCheckpointer:
 
         def write():
             try:
-                os.makedirs(os.path.abspath(base_dir), exist_ok=True)
-                tmp = path + ".tmp"
-                torch.save(snapshot, tmp)
-                os.replace(tmp, path)
-                logger.info("saved checkpoint at step %d -> %s", step, path)
-                prune_checkpoints(base_dir, self.keep)
+                save_checkpoint(base_dir, snapshot, step, self.keep)
             except BaseException as e:  # raised on the training thread
                 self._error = e
 
