@@ -115,9 +115,21 @@ and check them.
    profiled, with the scale discriminator's grouped-conv input gradient;
    a tail_f32 step's FLOPs (counted on CPU copies at batches 1 and 2,
    extrapolated to 12) and its ``roofline_row`` (bf16).
+4e. The data axis (also alone as ``--ddp``): a 1-rank NCCL group in this
+   process and the full-width Trainer on it against the one-process
+   Trainer over 3 steps (parameters bit-equal), E's and F's launches a
+   step, a profiled step's NCCL kernels (none: a world of one skips the
+   gradient all-reduce), that all-reduce alone as a larger world runs it,
+   and the step's wall time in turns; then ``torchrun --nproc_per_node 1``
+   through the CLI to step 2 and resumed to step 4, its checkpoint served
+   by ``TTSEngine.from_checkpoint``.
+4f. The training decoder's fold (also alone as ``--fold``): the C = 64
+   and C = 32 MRF stages at batch 12 and a 16 384-sample segment, folded
+   against plain ResBlock1, forward + backward: gradients held in f64,
+   device time in bf16 and f32.
 5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d, 3f,
-   3e and 4c), the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+   3e and 4c, E's and F's over phases 4 and 4e), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
 package is not beside this file, or when any phase fails.
@@ -139,6 +151,11 @@ last, for the checkout this file sits in.
 
 runs phases 4c and 4d alone and prints their records as one JSON line
 last.
+
+    python3 chip_smoke.py --ddp
+    python3 chip_smoke.py --fold
+
+run phase 4e or 4f alone and print its record as one JSON line last.
 
     python3 chip_smoke.py --e-bwd
 
@@ -2263,6 +2280,291 @@ def bf16_phase(torch, cfg, trainer, record):
     record.update(options=rows, step_frames=frames, step_cost=cost, step_roofline=row)
 
 
+DDP_STEPS = 3   # phase 4e: steps of the 1-rank and the one-process Trainer
+DDP_TIMED = 5   # phase 4e: turns of (plain, mesh, mesh, plain) timed steps
+CLI_TIMEOUT = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_phase(torch, cfg, root, record, device=None):
+    """Phase 4e (also alone as ``--ddp``): the data axis on the card.  In
+    this process: a 1-rank NCCL group (127.0.0.1, a free port) and a
+    full-width ``Trainer`` on it (batch 12, phase 4's corpus), ``DDP_STEPS``
+    steps through ``Trainer.train``, then a one-process ``Trainer`` from the
+    same seed on the same batches, with cuDNN deterministic: their largest
+    parameter difference must be 0 (else it must not exceed that of a
+    second one-process run).  E's and F's launches a step, one profiled
+    step's NCCL and ``cat`` kernels (count and device time: a world of one
+    runs no gradient all-reduce), the flattened all-reduce that a larger
+    world runs (``parallel/mesh.py::all_reduce_mean_`` of G's and of D's
+    gradients on the 1-rank group: time and bound), and the step's wall
+    time in turns with the one-process Trainer's.  Through the CLI: ``torchrun
+    --standalone --nproc_per_node 1 -m vispeech_tpu_torch.train.cli`` to
+    step 2, then to step 4: exit 0, ``ckpt_*.pt`` and the TensorBoard
+    output written, the second run resumed at step 2, and the checkpoint
+    served by ``TTSEngine.from_checkpoint``.  ``device`` None means the
+    card.  → E's and F's launch counts over the in-process mesh run."""
+    import numpy as np
+
+    from vispeech_tpu_torch.config import save_config
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.parallel import make_mesh
+    from vispeech_tpu_torch.parallel.mesh import all_reduce_mean_
+    from vispeech_tpu_torch.train.loop import Trainer
+
+    cfg, data_root = _corpus(root, cfg)
+    per_step = {"wn_stack_train_fwd": 5, "wn_stack_train_bwd": 5,
+                "rel_attention_train_fwd": 14, "rel_attention_train_bwd": 14}
+
+    def run_dir(name):
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, save_dir=os.path.join(root, name)))
+
+    launcher = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in launcher}
+    os.environ.update(launcher)
+    try:
+        mesh = make_mesh(device=device, init_method=f"tcp://127.0.0.1:{_free_port()}")
+        try:
+            print(f"ddp: rank {mesh.rank} of {mesh.world_size} on {mesh.device}, backend "
+                  f"{torch.distributed.get_backend()}")
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True   # for the comparison alone
+            try:
+                dist_trainer = Trainer(run_dir("mesh"), data_root=data_root, mesh=mesh)
+                kernels.reset_launches()
+                dist_trainer.train(max_steps=DDP_STEPS)
+                torch.cuda.synchronize()
+                counts = {k: kernels.launch_counts()[k] for k in per_step}
+
+                def trained(name):
+                    t = Trainer(run_dir(name), data_root=data_root, device=device)
+                    t.train(max_steps=DDP_STEPS)
+                    return t
+
+                def max_diff(a, b):
+                    return max(float((x.detach() - y.detach()).abs().max()) for x, y in zip(
+                        [*a.model_g.parameters(), *a.model_d.parameters()],
+                        [*b.model_g.parameters(), *b.model_d.parameters()]))
+
+                plain = trained("plain")
+                diff = max_diff(dist_trainer, plain)
+                limit = 0.0
+                if diff > 0.0:   # cuDNN left something nondeterministic: measure it
+                    limit = max_diff(plain, trained("plain2"))
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            want = {k: DDP_STEPS * v for k, v in per_step.items()}
+            print(f"ddp: E/F launches over {DDP_STEPS} steps on the mesh {counts} "
+                  f"({ {k: v / DDP_STEPS for k, v in counts.items()} } a step), expected {want}")
+            if counts != want:
+                raise AssertionError(f"E/F launches on the mesh {counts} != {want}")
+            ok = diff <= limit
+            print(f"ddp: after {DDP_STEPS} steps (cuDNN deterministic) the 1-rank NCCL Trainer "
+                  f"vs the one-process Trainer: largest parameter difference {diff:.3e} (limit "
+                  f"{limit:.3e}{', two one-process runs' if diff > 0.0 else ''}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the 1-rank run differs from one process by {diff:.3e}")
+
+            batches = (b for _, b in dist_trainer.batches())
+            batch = next(batches)
+            batches.close()
+            prof = {}
+            profile(torch, "1-rank NCCL train step", lambda: dist_trainer.step_fn(batch), 8,
+                    prof, {"nccl": "nccl", "cat": "CatArrayBatchedCopy"})
+            matched = prof.get("matched", {})
+            print(f"ddp: in one profiled step (ms, count): NCCL kernels "
+                  f"{matched.get('nccl', 'not measured')}, the flattening cat kernels "
+                  f"{matched.get('cat', 'not measured')}; busy "
+                  f"{prof.get('busy_ms', float('nan')):.2f} ms of {prof.get('wall_ms', 0):.2f}")
+            # the gradient all-reduce alone (flatten, all-reduce, divide) on this
+            # step's gradients, as a world of more than one runs it (a world of
+            # one skips it), and its bound: each gradient read, the buffer
+            # written, read and written again
+            reduce_ms = {}
+            for name, model in (("G", dist_trainer.model_g), ("D", dist_trainer.model_d)):
+                params = [p for p in model.parameters() if p.grad is not None]
+                n = sum(p.numel() for p in params)
+                ms = time_ms(lambda: all_reduce_mean_(params, mesh.group, 1), 10)
+                b_ms, _ = bound(4 * 4 * n, 0, "float32")
+                reduce_ms[name] = {"ms": ms, "bound_ms": b_ms, "params": n}
+                print(f"ddp: all_reduce_mean_ of {name}'s {n / 1e6:.2f} M gradients "
+                      f"({4 * n / 2 ** 20:.1f} MiB) on the 1-rank group, as a larger world "
+                      f"runs it (skipped at world size 1): {ms:.4f} ms a call (CUDA events "
+                      f"over 10 calls: the host's dispatch where it is the slower), bound "
+                      f"{b_ms:.4f} ms (bytes)")
+            times = {"plain": [], "mesh": []}
+            for name in ("plain", "mesh", "mesh", "plain") * DDP_TIMED:
+                step = (dist_trainer if name == "mesh" else plain).step_fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            print(f"ddp: step wall ms in turns, one process {[round(t, 2) for t in times['plain']]}"
+                  f", 1-rank mesh {[round(t, 2) for t in times['mesh']]}; medians "
+                  f"{np.median(times['plain']):.2f} / {np.median(times['mesh']):.2f}; "
+                  f"{card_line()}")
+            record.update(param_diff=diff, param_limit=limit, launches=counts, profiled=prof,
+                          average_grads=reduce_ms, step_ms=times)
+            del dist_trainer, plain
+        finally:
+            mesh.close()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+
+    # the CLI under torchrun, one process on the card: 2 steps, then resumed to 4
+    cli_cfg = run_dir("cli")
+    cfg_path = os.path.join(root, "cli_config.json")
+    save_config(cli_cfg, cfg_path)
+    env = {k: v for k, v in os.environ.items() if k not in launcher}
+    env["PYTHONPATH"] = ROOT
+    logs = []
+    for target in (2, 4):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "-m", "vispeech_tpu_torch.train.cli", "-c", cfg_path, "--data-root",
+             data_root, "--max-steps", str(target)] + (["--device", device] if device else []),
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        print(f"ddp: torchrun --nproc_per_node 1 ... --max-steps {target}: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.2f} s")
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:])
+            raise AssertionError(f"the CLI under torchrun exited {proc.returncode}")
+        logs.append(proc.stderr)
+    run = cli_cfg.train.save_dir
+    listing = sorted(os.listdir(run))
+    tb = sorted(os.listdir(os.path.join(run, "tb")))
+    print(f"ddp: CLI run dir {listing}; tb/ {tb}")
+    if "ckpt_4.pt" not in listing or not tb:
+        raise AssertionError(f"the CLI's run dir lacks ckpt_4.pt or TensorBoard output")
+    if "resumed at step 2" not in logs[1]:
+        raise AssertionError("the second CLI run did not resume at step 2")
+    engine = TTSEngine.from_checkpoint(os.path.join(run, "config.json"), run,
+                                       device=device or "cuda")
+    print(f"ddp: the second run resumed at step 2; ckpt_4.pt served by "
+          f"TTSEngine.from_checkpoint on {engine.device}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+FOLD_BATCH = 12    # phase 4f: the trainer's batch (configs/config.json)
+FOLD_TOL = 1e-5    # phase 4f: f64 (weights folded in f32): each gradient within this of its peak
+FOLD_REPS = 3      # phase 4f: forward + backward calls a profiled window
+
+
+def fold_phase(torch, cfg, record, dev=None, batch=FOLD_BATCH):
+    """Phase 4f (also alone as ``--fold``): the training decoder's MRF
+    stages of at most 64 channels (C = 64 at T = 8192 and C = 32 at
+    T = 16 384 samples for a 16 384-sample segment) at batch 12, the
+    folded stage (``ops/folded_mrf.py``, fold 128 // C) against the plain
+    ResBlock1 stage, forward and backward.  First the gradients of x and
+    of every weight of the two routes held against each other in f64
+    (each within ``FOLD_TOL`` of its peak: the same math, summed in
+    another order, the folded weights rounded to f32 as ``folded_units``
+    folds them: f64 holds the routes' math apart from cuDNN's f32
+    rounding, which on either route is far larger); then each route's
+    device time a forward + backward
+    (torch.profiler, ``FOLD_REPS`` calls) in bf16 (the default tail_f32
+    decoder body) and in f32 with TF32 on (the f32 option's step), and the
+    two routes' gradients in each.  ``record`` gets a row a stage."""
+    import copy
+    import math
+
+    from vispeech_tpu_torch.models.generator import Generator
+    from vispeech_tpu_torch.models.synthesizer import random_init_
+    from vispeech_tpu_torch.ops import folded_mrf
+    from vispeech_tpu_torch.train.step import tf32_mode
+
+    dev = dev or torch.device("cuda")
+    m = cfg.model
+    gen = random_init_(Generator(m.inter_channels, m.resblock, m.resblock_kernel_sizes,
+                                 m.resblock_dilation_sizes, m.upsample_rates,
+                                 m.upsample_initial_channel, m.upsample_kernel_sizes), SEED)
+    n = len(gen.kernel_sizes)
+    rng = torch.Generator().manual_seed(SEED)
+    for i, ch in enumerate(gen.channels):
+        if ch > 64:
+            continue
+        T = cfg.train.segment_size // math.prod(m.upsample_rates[i + 1:])
+        fold = 128 // ch
+        x0 = torch.randn(batch, ch, T, generator=rng).to(dev)
+        dy = torch.randn(batch, ch, T, generator=rng).to(dev)
+        row = {"T": T, "fold": fold}
+
+        def routes(blocks):
+            def plain(x):
+                return sum(b.forward_cf(x) for b in blocks) / n
+
+            def folded(x):
+                return folded_mrf.mrf_stage_folded(
+                    x.transpose(1, 2), [b.packed() for b in blocks], gen.kernel_sizes,
+                    gen.dilations, fold).transpose(1, 2)
+            return {"plain": plain, "folded": folded}
+
+        def grads(fn, blocks, x):
+            x = x.clone().requires_grad_(True)
+            return torch.autograd.grad(fn(x), [x, *blocks.parameters()], dy.to(x.dtype))
+
+        def worst(a, b):
+            return max(float((u.float() - v.float()).abs().max())
+                       / max(float(v.float().abs().max()), 1e-30) for u, v in zip(a, b))
+
+        f64 = copy.deepcopy(gen.resblocks[i * n:(i + 1) * n]).to(dev, torch.float64)
+        r = routes(f64)
+        err = worst(grads(r["folded"], f64, x0.double()), grads(r["plain"], f64, x0.double()))
+        ok = err <= FOLD_TOL
+        print(f"fold: C = {ch} at T = {T}, fold {fold}, batch {batch}: f64 gradients of x and "
+              f"{len(list(f64.parameters()))} weights, folded vs plain, worst {err:.3e} of "
+              f"each peak (tol {FOLD_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"C = {ch}: folded and plain gradients differ by {err:.3e}")
+        row["f64_grad_err"] = err
+        for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            blocks = copy.deepcopy(f64).to(dtype)
+            x = x0.to(dtype).requires_grad_(True)
+            r = routes(blocks)
+            times = {}
+            with tf32_mode(True):
+                row[f"{label}_grad_err"] = worst(grads(r["folded"], blocks, x0.to(dtype)),
+                                                 grads(r["plain"], blocks, x0.to(dtype)))
+                for name, fn in r.items():
+                    def fwd_bwd(fn=fn):
+                        for _ in range(FOLD_REPS):
+                            torch.autograd.backward(fn(x), dy.to(dtype))
+                    fwd_bwd()
+                    prof = {}
+                    profile(torch, f"fold C = {ch} {label} {name} x{FOLD_REPS}", fwd_bwd, 3,
+                            prof)
+                    times[name] = prof.get("busy_ms", float("nan")) / FOLD_REPS
+            row[label] = times
+            print(f"fold: C = {ch} at T = {T} {label}: forward + backward device time a call "
+                  f"plain {times['plain']:.4f} ms, folded {times['folded']:.4f} ms "
+                  f"(folded / plain {times['folded'] / times['plain']:.3f}); gradients folded "
+                  f"vs plain worst {row[label + '_grad_err']:.3e} of each peak; {card_line()}")
+            del blocks, x
+        record[f"C={ch}"] = row
+        del f64, x0, dy
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def seeded_state_dict(torch, cfg) -> dict:
     """The serving phases' weights: drawn from ``SEED`` at the config's
     width, the duration head biased, since random weights predict
@@ -2346,6 +2648,22 @@ def main() -> int:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"root": ROOT, "card": card_line(), **rec}))
         return 0
+    if sys.argv[1:] == ["--ddp"]:
+        _build.build_all()
+        rec = {}
+        root = tempfile.mkdtemp(prefix="vispeech_ddp_")
+        try:
+            ddp_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), root,
+                      rec)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"root": ROOT, "card": card_line(), "ddp": rec}, default=str))
+        return 0
+    if sys.argv[1:] == ["--fold"]:
+        rec = {}
+        fold_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), rec)
+        print(json.dumps({"root": ROOT, "card": card_line(), "fold": rec}))
+        return 0
     if sys.argv[1:] == ["--e-bwd"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         r = e_bwd_breakdown(torch, dev)
@@ -2427,12 +2745,19 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vispeech_ddp_")
+    try:
+        ddp_counts = ddp_phase(torch, cfg, root, {})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fold_phase(torch, cfg, {})
 
     # A, B, C and D count the serving run, the VC run, the text phase, the
-    # HTTP phase and the trainer's evals; the training run E and F
+    # HTTP phase and the trainer's evals; E and F the training run and the
+    # 1-rank mesh's
     counts = {k: v + vc_counts[k] + text_counts[k] + http_counts[k]
               + trainer_counts.get(k, 0) for k, v in counts.items()}
-    counts.update({k: v for k, v in train_counts.items() if "_train_" in k})
+    counts.update({k: v + ddp_counts[k] for k, v in train_counts.items() if "_train_" in k})
     kernels = [dict(name=name, route="cuda",
                     source=f"vispeech_tpu_torch/csrc/{name.rsplit('_', 1)[0] if '_train_' in name else name}.cu",
                     replaces=REPLACES[name], launches=counts[name],

@@ -42,3 +42,4 @@ def test_sources_import_nothing_of_the_jax_package():
                  for p in PORT_FILES for m in pattern.finditer(p.read_text())]
     assert not offenders, offenders
     assert len(PORT_FILES) > 20
+    assert PORT / "parallel" / "mesh.py" in PORT_FILES

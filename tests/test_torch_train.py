@@ -258,43 +258,80 @@ def jax_mel_of_spec(spec, d):
                        d.mel_fmax)
 
 
-def test_step_gradients_match_jax(setup):
-    import dataclasses
-
+@pytest.fixture(scope="module")
+def jax_step(setup):
+    """JAX's step on setup's batch against the scale discriminator and one
+    period (they keep the JAX compile short): both losses, both networks'
+    flat weights and their gradients as the port's state dicts."""
     s = setup
-    # the scale discriminator and one period keep the JAX compile short
     jd = JaxMPD(periods=(2,))
     params_d = {k: v for k, v in s["params_d"].items() if k in ("disc_s", "disc_p2")}
     ld, gd, lg, gg = _jax_step_grads(s, jd, params_d)
-    pcfg = s["pcfg"]
-    pcfg = dataclasses.replace(pcfg, train=dataclasses.replace(pcfg.train, learning_rate=0.0))
-    pm = load_flax_params(Synthesizer.from_config(pcfg, N_VOCAB),
-                          {k: np.asarray(v) for k, v in flatten_dict(
-                              jax.device_get(s["params_g"]), sep="/").items()}, 1).eval()
-    pd = load_flax_params(MultiPeriodDiscriminator(periods=(2,)),
-                          {k: np.asarray(v) for k, v in flatten_dict(
-                              jax.device_get(params_d), sep="/").items()},
-                          discriminator=True).eval()
-    step = TrainStep(pcfg, pm, pd, steps_per_epoch=10)
-    args = port_args(s)
-    batch = dict(zip(("phonemes", "phoneme_lengths", "f0", "energy", "duration", "spec",
-                      "spec_lengths", "sid"), args), wav=t(s["batch"]["wav"]))
-    m = step(batch, eps_q=t(s["eps"]), ids_slice=t(s["ids"]))
-    close(m["loss/d/total"], ld, what="D loss")
-    close(m["loss/g/total"], lg, what="G loss")
-    for model, grads, disc in ((pm, gg, False), (pd, gd, True)):
-        want = flax_to_state_dict({k: np.asarray(v) for k, v in
-                                   flatten_dict(jax.device_get(grads), sep="/").items()},
-                                  1, discriminator=disc)
-        norm_p = torch.sqrt(sum((p.grad.double() ** 2).sum() for p in model.parameters()))
+
+    def flat(tree):
+        return {k: np.asarray(v) for k, v in flatten_dict(jax.device_get(tree), sep="/").items()}
+
+    return dict(ld=ld, lg=lg, flat_g=flat(s["params_g"]), flat_d=flat(params_d),
+                grads_g=flax_to_state_dict(flat(gg), 1),
+                grads_d=flax_to_state_dict(flat(gd), 1, discriminator=True))
+
+
+def _step_batch(s):
+    return dict(zip(("phonemes", "phoneme_lengths", "f0", "energy", "duration", "spec",
+                     "spec_lengths", "sid"), port_args(s)), wav=t(s["batch"]["wav"]))
+
+
+def hold_step(m, grads_g, grads_d, j):
+    """The port's step metrics ``m`` and gradients ({name: grad} of G and
+    of D) against JAX's step ``j``."""
+    close(m["loss/d/total"], j["ld"], what="D loss")
+    close(m["loss/g/total"], j["lg"], what="G loss")
+    for grads, want, norm in ((grads_g, j["grads_g"], "grad_norm_g"),
+                              (grads_d, j["grads_d"], "grad_norm_d")):
+        norm_p = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values()))
         norm_j = torch.sqrt(sum((w.double() ** 2).sum() for w in want.values()))
         close(norm_p, norm_j, 1e-3, 0, "grad norm")
         top = max(float(w.abs().max()) for w in want.values())
-        for name, p in model.named_parameters():
+        assert grads.keys() == want.keys()
+        for name, g in grads.items():
             peak = max(float(want[name].abs().max()), 1e-3 * top)
-            close(p.grad, want[name], 0, 2e-3 * peak, name)
-        norm = "grad_norm_d" if disc else "grad_norm_g"
+            close(g, want[name], 0, 2e-3 * peak, name)
         close(m[norm], norm_p, 1e-5, 0, norm)
+
+
+def test_step_gradients_match_jax(setup, jax_step):
+    import dataclasses
+
+    s = setup
+    pcfg = s["pcfg"]
+    pcfg = dataclasses.replace(pcfg, train=dataclasses.replace(pcfg.train, learning_rate=0.0))
+    pm = load_flax_params(Synthesizer.from_config(pcfg, N_VOCAB), jax_step["flat_g"], 1).eval()
+    pd = load_flax_params(MultiPeriodDiscriminator(periods=(2,)), jax_step["flat_d"],
+                          discriminator=True).eval()
+    step = TrainStep(pcfg, pm, pd, steps_per_epoch=10)
+    m = step(_step_batch(s), eps_q=t(s["eps"]), ids_slice=t(s["ids"]))
+    hold_step(m, {k: p.grad for k, p in pm.named_parameters()},
+              {k: p.grad for k, p in pd.named_parameters()}, jax_step)
+
+
+def test_two_ranks_on_halves_match_jax(setup, jax_step, tmp_path):
+    """The port's step on 2 gloo ranks, one utterance each (their phoneme
+    and frame counts unequal), against JAX's step on the whole batch, at
+    the tolerances of the one-process step: the global batch's losses
+    (the ranks' mean), both grad norms and every averaged gradient."""
+    from test_torch_ddp import Job, job_step_on_halves
+
+    s = setup
+    assert len(set(s["batch"]["spec_lengths"])) == B   # unequal masks
+    Job(tmp_path, 2, job_step_on_halves, str(tmp_path), TINY, N_VOCAB, jax_step["flat_g"],
+        jax_step["flat_d"], {k: v.clone() for k, v in _step_batch(s).items()}, t(s["eps"]),
+        t(s["ids"])).join()
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    assert got[0]["metrics"] == got[1]["metrics"]
+    for net in ("g", "d"):
+        assert all(torch.equal(a, got[1][net][k]) for k, a in got[0][net].items())
+    hold_step({k: torch.tensor(v) for k, v in got[0]["metrics"].items()}, got[0]["g"],
+              got[0]["d"], jax_step)
 
 
 def test_adamw_matches_optax():

@@ -73,9 +73,16 @@ class TrainConfig:
     c_mel: float = 45.0
     c_kl: float = 1.0
     save_dir: str = "./logdir/vispeech"
+    # kernel E / F in training; false runs its plain version, on CPU tensors
+    # only: on the card E and F are the only training routes and false raises
     fused_wn: bool = True
     fused_attn: bool = True
-    folded_mrf: bool = True
+    # read for a note only: the port's training decoder never folds its C <= 64
+    # stages (ops/folded_mrf.py), as on the H100 the folded forward + backward at
+    # batch 12 and a 16 384-sample segment took 1.89x (C = 64) and 1.32x (C = 32)
+    # the plain ResBlock1 stage in bf16, 2.34x and 1.80x in f32 (chip_smoke.py
+    # --fold, H100 80GB HBM3, 700 W)
+    folded_mrf: bool = False
     device_dsp: bool = True
 
 

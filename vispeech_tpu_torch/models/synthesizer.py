@@ -24,6 +24,7 @@ forward and 2590 in the inverse.
 from __future__ import annotations
 
 import functools
+import logging
 import math
 from functools import partial
 from typing import Optional, Tuple
@@ -45,6 +46,18 @@ from vispeech_tpu_torch.ops.length_regulator import length_regulate
 from vispeech_tpu_torch.ops.masking import length_mask, rand_slice_segments
 from vispeech_tpu_torch.ops.policy import FLOAT32, ServingPolicy
 from vispeech_tpu_torch.ops.wavenet import WN
+
+
+logger = logging.getLogger("vispeech_tpu_torch")
+
+
+@functools.lru_cache(maxsize=None)
+def _note_unfolded_decoder() -> None:
+    """Say once a process that ``train.folded_mrf`` is not followed."""
+    logger.warning(
+        "train.folded_mrf is true, but the port's training decoder runs every MRF stage "
+        "as the plain ResBlock1: on the H100 the folded stage's forward and backward took "
+        "1.3-2.3x the plain stage's (PERF.md section 6, chip_smoke.py --fold)")
 
 
 def f0_to_lf0(f0: torch.Tensor) -> torch.Tensor:
@@ -195,7 +208,8 @@ class Synthesizer(nn.Module):
                  upsample_kernel_sizes=(16, 16, 4, 4), n_speakers: int = 0,
                  gin_channels: int = 0, use_sdp: bool = False,
                  policy: ServingPolicy = FLOAT32, p_dropout: float = 0.1,
-                 segment_size: int = 32, bf16_stages: Tuple[str, ...] = ()):
+                 segment_size: int = 32, bf16_stages: Tuple[str, ...] = (),
+                 train_fused_wn: bool = True, train_fused_attn: bool = True):
         super().__init__()
         if use_sdp:
             raise NotImplementedError(
@@ -225,11 +239,20 @@ class Synthesizer(nn.Module):
         if n_speakers > 1:
             self.emb_g = nn.Embedding(n_speakers, gin_channels, _weight=torch.empty(
                 n_speakers, gin_channels))
+        # the training dispatch switches (train.fused_wn, fused_attn); serving
+        # reads neither
+        for mod in self.modules():
+            if isinstance(mod, WN):
+                mod.fused_train = train_fused_wn
+            elif isinstance(mod, MultiHeadAttention):
+                mod.fused_train = train_fused_attn
 
     @classmethod
     def from_config(cls, cfg: Config, n_vocab: int,
                     policy: ServingPolicy = FLOAT32) -> "Synthesizer":
         m = cfg.model
+        if cfg.train.folded_mrf:
+            _note_unfolded_decoder()
         return cls(
             n_vocab=n_vocab, spec_channels=cfg.data.spec_channels,
             inter_channels=m.inter_channels, hidden_channels=m.hidden_channels,
@@ -242,7 +265,8 @@ class Synthesizer(nn.Module):
             upsample_kernel_sizes=m.upsample_kernel_sizes,
             n_speakers=cfg.data.n_speakers, gin_channels=m.gin_channels,
             use_sdp=m.use_sdp, policy=policy, p_dropout=m.p_dropout,
-            segment_size=cfg.train.segment_size // cfg.data.hop_length)
+            segment_size=cfg.train.segment_size // cfg.data.hop_length,
+            train_fused_wn=cfg.train.fused_wn, train_fused_attn=cfg.train.fused_attn)
 
     def _speaker(self, sid):
         if self.n_speakers > 1 and sid is not None:
@@ -305,18 +329,17 @@ class Synthesizer(nn.Module):
 
         z_slice, ids_slice = rand_slice_segments(z, spec_lengths, self.segment_size,
                                                  generator, ids=ids_slice)
-        # kernel C has no backward: training decodes every stage with the
-        # plain ResBlock1, as the JAX trainer's folded_narrow path computes
+        # kernels C and D have no backward: training decodes every stage with
+        # the plain ResBlock1, whatever train.folded_mrf says
+        dec = partial(self.dec, fused=False)
         if "dec_body" in self.bf16_stages:
-            o = self._stage("dec_body", partial(self.dec, fused=False, tail_f32=True),
-                            z_slice, g=g)
+            o = self._stage("dec_body", partial(dec, tail_f32=True), z_slice, g=g)
         else:
             # A whole-graph scope hands bf16 activations to the decoder; flax
             # computes an op in the promotion of its input's and parameters'
             # dtypes, where the port's layers would cast their weights down
             dtype = torch.promote_types(z_slice.dtype, self.dec.conv_pre.weight.dtype)
-            o = self._stage("dec", partial(self.dec, fused=False),
-                            *_cast_floats((z_slice, g), dtype))
+            o = self._stage("dec", dec, *_cast_floats((z_slice, g), dtype))
         return (o, l_length, l_pitch, l_energy, ids_slice, frame_mask, y_mask,
                 (z, z_p, m_p, logs_p, m_q, logs_q), pred_f0, pred_norm_energy, norm_energy)
 

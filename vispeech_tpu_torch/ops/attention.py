@@ -3,13 +3,18 @@ post-norm encoder (``vispeech_tpu/ops/attention.py``).
 
 When autograd needs gradients attention runs through kernel F's wrapper
 (``ops/kernels/rel_attention_train.py``: forward and backward, dropout on
-the probabilities at ``p_dropout`` in training mode), otherwise through
-kernel A's (``ops/kernels/rel_attention.py``); each the kernel on a CUDA
-tensor, its plain version on a CPU tensor.  Both mask key positions only;
-the encoder re-masks every layer's output, so valid rows match the JAX
-package's outer-product mask exactly.  The other dropout sites are
-``nn.Dropout``: the FFN's activations and the encoder's attention and FFN
-outputs.  A dropout seed for F comes from the caller's CPU ``generator``.
+the probabilities at ``p_dropout`` in training mode), or, with
+``fused_train`` off (``train.fused_attn: false``), through F's plain
+forward under autograd on a CPU tensor, with the same hashed keep mask
+(the JAX package draws that dropout from flax's stream, which no torch
+stream can match); on a CUDA tensor F is the only training route, and the
+switch off raises.  Otherwise attention runs through kernel A's wrapper
+(``ops/kernels/rel_attention.py``).  Each wrapper launches its kernel on a
+CUDA tensor and runs its plain version on a CPU tensor.  Both mask key
+positions only; the encoder re-masks every layer's output, so valid rows
+match the JAX package's outer-product mask exactly.  The other dropout
+sites are ``nn.Dropout``: the FFN's activations and the encoder's
+attention and FFN outputs.  A dropout seed for F comes from the caller's CPU ``generator``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ class MultiHeadAttention(nn.Module):
         self.conv_o = Conv1d(channels, out_channels, 1)
         self.emb_rel_k = nn.Parameter(torch.empty(n_rel, 2 * window_size + 1, d))
         self.emb_rel_v = nn.Parameter(torch.empty(n_rel, 2 * window_size + 1, d))
+        self.fused_train = True   # train.fused_attn: kernel F under autograd
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor, generator=None) -> torch.Tensor:
         """x [B, T, C], key_mask [B, T] → [B, T, out]."""
@@ -53,8 +59,19 @@ class MultiHeadAttention(nn.Module):
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v) + rel):
             rate = self.p_dropout if self.training else 0.0
             seed = rel_attention_train.draw_seed(generator) if rate > 0.0 else 0
-            out = rel_attention_train.relative_self_attention_train(
-                q, k, v, *rel, key_mask, seed, rate, self.window_size)
+            if self.fused_train:
+                out = rel_attention_train.relative_self_attention_train(
+                    q, k, v, *rel, key_mask, seed, rate, self.window_size)
+            elif _on_card(q):
+                raise RuntimeError(
+                    "train.fused_attn is false, but kernel F is the port's only attention "
+                    "training path on the card: set train.fused_attn true (F's plain "
+                    "version runs on CPU tensors only)")
+            else:
+                args = [t.float() for t in (q, k, v, *rel, key_mask)]
+                out, _ = rel_attention_train.relative_self_attention_train_plain_fwd(
+                    *args, seed, rate, self.window_size, q.dtype == torch.bfloat16)
+                out = out.to(q.dtype)
         else:
             out = rel_attention.relative_self_attention(
                 q, k, v, self.emb_rel_k, self.emb_rel_v, key_mask, self.window_size)
@@ -103,3 +120,8 @@ class Encoder(nn.Module):
             x = norm1(x + self.drop(attn(x, key_mask, generator)))
             x = norm2(x + self.drop(ffn(x, x_mask)))
         return x * x_mask
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` would launch the kernels."""
+    return x.device.type != "cpu"

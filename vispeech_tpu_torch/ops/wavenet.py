@@ -6,12 +6,14 @@ gate (``fused_gate``, beside kernel B's plain version), 1×1 res/skip]; the
 mask applies to x after every residual update and to the skip sum at the
 end.  The layers' weights are packed as the JAX package's ``_fused`` packs
 them.  When autograd needs gradients the whole stack runs through kernel
-E's wrapper (``ops/kernels/wn_stack_train.py``, forward and backward),
-otherwise through kernel B's (``ops/kernels/wn_stack.py``): each the kernel
-on a CUDA tensor, its plain version on a CPU tensor.  On the card with
-autograd off, B's prepared weights come from ``kernel_operands``, kept
-while the frozen weights stay the same; on the CPU, or whenever autograd is
-on, nothing is kept.
+E's wrapper (``ops/kernels/wn_stack_train.py``, forward and backward), or,
+with ``fused_train`` off (``train.fused_wn: false``), through E's plain
+version under autograd on a CPU tensor (on a CUDA tensor E is the only
+training route, and the switch off raises); otherwise through kernel B's
+(``ops/kernels/wn_stack.py``): each the kernel on a CUDA tensor, its plain
+version on a CPU tensor.  On the card with autograd off, B's prepared
+weights come from ``kernel_operands``, kept while the frozen weights stay
+the same; on the CPU, or whenever autograd is on, nothing is kept.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class WN(nn.Module):
         self.res_skip_layers = nn.ModuleList(
             WNConv1d(C, 2 * C if i < n_layers - 1 else C, 1) for i in range(n_layers))
         self._kernel_cache = None   # kernel_operands' (key, tensors, operands)
+        self.fused_train = True       # train.fused_wn: kernel E under autograd
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -51,7 +54,19 @@ class WN(nn.Module):
                                      b_rs, self.kernel_size, prepared)
         packed = self.packed(x.shape[0], g)
         if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in packed)):
-            return wn_stack_train.wn_stack_train(x, x_mask, *packed, self.kernel_size)
+            if self.fused_train:
+                return wn_stack_train.wn_stack_train(x, x_mask, *packed, self.kernel_size)
+            if _on_card(x):
+                raise RuntimeError(
+                    "train.fused_wn is false, but kernel E is the port's only WN training "
+                    "path on the card: set train.fused_wn true (E's plain version runs on "
+                    "CPU tensors only)")
+            # E's plain forward, differentiated by autograd, its operands
+            # rounded to bf16 where x is bf16 as the kernel rounds them
+            args = [t.float() for t in (x, x_mask, *packed)]
+            out, _ = wn_stack_train.wn_stack_train_plain_fwd(
+                *args, self.kernel_size, x.dtype == torch.bfloat16)
+            return out.to(x.dtype)
         return wn_stack.wn_stack(x, x_mask, *packed, self.kernel_size)
 
     def _cond(self, b_in: torch.Tensor, batch: int, g: Optional[torch.Tensor]):
@@ -100,3 +115,8 @@ class WN(nn.Module):
             # the tensors stay referenced, so their ids cannot be reused
             self._kernel_cache = (key, tensors, operands)
         return operands
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` would launch the kernels."""
+    return x.device.type != "cpu"

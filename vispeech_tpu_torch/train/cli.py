@@ -7,8 +7,16 @@
 Trains on the GPU unless ``--device cpu``; resumes from the newest
 checkpoint in the save directory (the port's ``ckpt_*.pt``, else a JAX
 ``ckpt_*.npz``).  ``--profile START:STOP`` writes a Chrome trace of the
-steps [START, STOP) into ``SAVE_DIR/profile``.  ``--model-parallel`` > 1
-is refused: the multi-GPU mesh waits in ``ROADMAP.md`` queue 1 item 7.
+steps [START, STOP) into ``SAVE_DIR/profile``.  Data parallelism: launched
+by torchrun, one process a GPU,
+
+    torchrun --standalone --nproc_per_node N -m vispeech_tpu_torch.train.cli \\
+        -c configs/config.json --data-root DIR
+
+each process joins the data axis (``parallel.make_mesh``: NCCL, or gloo
+with ``--device cpu``) and trains on its share of a global batch of
+``batch_size × N``.  ``--model-parallel`` > 1 is refused: the model axis
+waits in ``ROADMAP.md`` queue 1 item 7b.
 """
 
 from __future__ import annotations
@@ -30,8 +38,8 @@ def main(argv=None):
                         "for Perfetto or chrome://tracing)")
     args = p.parse_args(argv)
     if args.model_parallel != 1:
-        p.error("--model-parallel > 1 (the data × model mesh) is not ported yet: "
-                "ROADMAP.md queue 1 item 7")
+        p.error("--model-parallel > 1 (the model axis) is not ported yet: "
+                "ROADMAP.md queue 1 item 7b")
     profile_steps = None
     if args.profile:
         lo, sep, hi = args.profile.partition(":")
@@ -40,15 +48,20 @@ def main(argv=None):
         profile_steps = (int(lo), int(hi))
 
     from vispeech_tpu_torch.config import load_config
+    from vispeech_tpu_torch.parallel import make_mesh
     from vispeech_tpu_torch.train.loop import Trainer
 
     cfg = load_config(args.config)
     if args.model_dir:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                                  save_dir=args.model_dir))
-    trainer = Trainer(cfg, data_root=args.data_root, device=args.device)
-    trainer.resume()
-    trainer.train(max_steps=args.max_steps, profile_steps=profile_steps)
+    mesh = make_mesh(device=args.device)   # a world of one without torchrun
+    try:
+        trainer = Trainer(cfg, data_root=args.data_root, mesh=mesh)
+        trainer.resume()
+        trainer.train(max_steps=args.max_steps, profile_steps=profile_steps)
+    finally:
+        mesh.close()
 
 
 if __name__ == "__main__":

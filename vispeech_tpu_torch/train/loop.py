@@ -1,4 +1,5 @@
-"""The training loop (``vispeech_tpu/train/loop.py``) on one device.
+"""The training loop (``vispeech_tpu/train/loop.py``), on one device or on
+each rank of the data axis (``parallel/mesh.py``).
 
 ``Trainer``: filelist data with bucketed batches, collated on a thread into
 pinned memory and copied one batch ahead; ``TrainStep`` (one GAN step);
@@ -15,8 +16,20 @@ the device's peak memory over them.  ``resume`` restores the newest
 ``ckpt_*.pt``, or, when there is none, continues the JAX package's newest
 ``ckpt_*.npz`` (``utils/jax_weights.py``).
 
-Not ported yet: the data × model mesh (``ROADMAP.md`` queue 1 item 7; the
-CLI refuses ``--model-parallel`` > 1).
+With a ``mesh`` of several ranks each rank loads its share of every
+global batch (``BucketSampler``'s ``num_replicas`` and ``rank``: every rank
+draws the same bucket at a step) onto its own device, and the step
+averages the gradients.  Rank 0 alone writes the run directory (logger
+file, ``config.json``, ``githash``, TensorBoard, evals, the profiler's
+trace, ``train_stats.json`` and the checkpoints, which hold every rank's
+random generators, gathered; each rank restores its own on resume).  The
+ranks agree at each step whether any was asked to stop (SIGTERM or
+``request_stop``), so all of them stop at the same step and none waits
+forever in an all-reduce.  At log steps the metrics are averaged over the
+ranks, so rank 0 logs the global batch's losses.
+
+Not ported yet: the model axis (``ROADMAP.md`` queue 1 item 7b; the CLI
+refuses ``--model-parallel`` > 1).
 """
 
 from __future__ import annotations
@@ -47,10 +60,11 @@ from vispeech_tpu_torch.dsp import mel_spectrogram, spec_to_mel
 from vispeech_tpu_torch.models.discriminator import MultiPeriodDiscriminator
 from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
 from vispeech_tpu_torch.ops.policy import FLOAT32, resolve_device
+from vispeech_tpu_torch.parallel import Mesh
 from vispeech_tpu_torch.text import N_SYMBOLS
 from vispeech_tpu_torch.train.step import TrainStep, learning_rate
 from vispeech_tpu_torch.utils import TrainLogger, check_git_hash, get_logger
-from vispeech_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint
+from vispeech_tpu_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint, rank_rng
 from vispeech_tpu_torch.utils.profiling import device_memory_stats, trace
 
 logger = logging.getLogger("vispeech_tpu_torch")
@@ -85,29 +99,39 @@ def synthesize_utterance(model: Synthesizer, dataset: FilelistDataset, index: in
 
 
 class Trainer:
-    """GAN trainer: data, step, logging, checkpoints.  ``device`` None
-    means the GPU."""
+    """GAN trainer: data, step, logging, checkpoints.  ``mesh`` (from
+    ``parallel.make_mesh``) puts it on a rank of the data axis, on the
+    mesh's device; None means one process on ``device`` (None: the GPU)."""
 
-    def __init__(self, cfg: Config, data_root: str = "dataset", device: Optional[str] = None):
+    def __init__(self, cfg: Config, data_root: str = "dataset", device: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None and resolve_device(device).type \
+                != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        self.mesh = mesh or Mesh(device=resolve_device(device))
+        self.device = self.mesh.device
+        self.main = self.mesh.is_main
         self.save_dir = cfg.train.save_dir
-        get_logger(self.save_dir)
-        save_config(cfg, os.path.join(self.save_dir, "config.json"))
-        check_git_hash(self.save_dir)
-        self.tb = TrainLogger(os.path.join(self.save_dir, "tb"))
-        self.tb_eval = TrainLogger(os.path.join(self.save_dir, "tb_eval"))
-        torch.manual_seed(cfg.train.seed)   # nn.Dropout's stream
+        get_logger(self.save_dir if self.main else None)
+        self.tb = self.tb_eval = None
+        if self.main:
+            save_config(cfg, os.path.join(self.save_dir, "config.json"))
+            check_git_hash(self.save_dir)
+            self.tb = TrainLogger(os.path.join(self.save_dir, "tb"))
+            self.tb_eval = TrainLogger(os.path.join(self.save_dir, "tb_eval"))
+        torch.manual_seed(self.mesh.seed(cfg.train.seed))   # nn.Dropout's stream
 
         self.train_set = FilelistDataset(cfg.data.training_files, cfg.data, data_root)
         self.val_set = FilelistDataset(cfg.data.validation_files, cfg.data, data_root)
         self.sampler = BucketSampler(self.train_set.lengths, cfg.train.batch_size,
+                                     num_replicas=self.mesh.world_size, rank=self.mesh.rank,
                                      seed=cfg.train.seed)
         self.steps_per_epoch = max(len(self.sampler), 1)
         self.phoneme_budgets = bucket_phoneme_budgets(self.train_set, self.sampler)
         logger.info("train: %d utterances, val: %d utterances, %d steps/epoch, device %s, "
-                    "buckets (T → N) %s", len(self.train_set), len(self.val_set),
-                    self.steps_per_epoch, self.device,
+                    "rank %d of %d, buckets (T → N) %s", len(self.train_set), len(self.val_set),
+                    self.steps_per_epoch, self.device, self.mesh.rank, self.mesh.world_size,
                     {self.sampler.buckets[b]: n for b, n in self.phoneme_budgets.items()})
 
         seed = cfg.train.seed
@@ -115,7 +139,8 @@ class Trainer:
         self.model_d = random_init_(MultiPeriodDiscriminator(), seed + 1)
         self.model_g.to(self.device).train()
         self.model_d.to(self.device).train()
-        self.step_fn = TrainStep(cfg, self.model_g, self.model_d, self.steps_per_epoch)
+        self.step_fn = TrainStep(cfg, self.model_g, self.model_d, self.steps_per_epoch,
+                                 mesh=self.mesh)
         self._checkpointer = AsyncCheckpointer(keep=2)
         self._stop_requested = False
         self._trace: Optional[contextlib.ExitStack] = None
@@ -129,16 +154,26 @@ class Trainer:
     def global_step(self) -> int:
         return self.step_fn.step
 
-    def state_dict(self) -> dict:
+    def rng_state(self) -> dict:
+        """This rank's random generators' states."""
         s = self.step_fn
-        return {"step": s.step, "model_g": self.model_g.state_dict(),
-                "model_d": self.model_d.state_dict(), "optim_g": s.opt_g.state_dict(),
-                "optim_d": s.opt_d.state_dict(), "generator": s.generator.get_state(),
+        return {"generator": s.generator.get_state(),
                 "seed_generator": s.seed_generator.get_state(),
                 "torch_rng": torch.get_rng_state(),
                 # nn.Dropout on the card draws from the device's default stream
                 "cuda_rng": (torch.cuda.get_rng_state(self.device)
                              if self.device.type == "cuda" else None)}
+
+    def state_dict(self, rank_rngs: Optional[list] = None) -> dict:
+        """The checkpoint: parameters and moments (replicated, so this
+        rank's are every rank's), the step, and ``rank_rngs`` (every rank's
+        ``rng_state``, default this one's alone), rank 0's also at the top
+        level, where a one-process checkpoint keeps them."""
+        s = self.step_fn
+        rngs = rank_rngs or [self.rng_state()]
+        return {"step": s.step, "model_g": self.model_g.state_dict(),
+                "model_d": self.model_d.state_dict(), "optim_g": s.opt_g.state_dict(),
+                "optim_d": s.opt_d.state_dict(), **rngs[0], "rank_rng": rngs}
 
     def load_state_dict(self, state: dict) -> None:
         s = self.step_fn
@@ -146,11 +181,16 @@ class Trainer:
         self.model_d.load_state_dict(state["model_d"])
         s.opt_g.load_state_dict(state["optim_g"])
         s.opt_d.load_state_dict(state["optim_d"])
-        s.generator.set_state(state["generator"])
-        s.seed_generator.set_state(state["seed_generator"])
-        torch.set_rng_state(state["torch_rng"])
-        if state.get("cuda_rng") is not None and self.device.type == "cuda":
-            torch.cuda.set_rng_state(state["cuda_rng"], self.device)
+        rng = rank_rng(state, self.mesh.rank)
+        if rng is None:   # saved by fewer ranks: this one keeps its fresh streams
+            logger.warning("rank %d: the checkpoint holds no random state for it",
+                           self.mesh.rank)
+        else:
+            s.generator.set_state(rng["generator"])
+            s.seed_generator.set_state(rng["seed_generator"])
+            torch.set_rng_state(rng["torch_rng"])
+            if rng.get("cuda_rng") is not None and self.device.type == "cuda":
+                torch.cuda.set_rng_state(rng["cuda_rng"], self.device)
         s.step = int(state["step"])
 
     def resume(self) -> Optional[int]:
@@ -176,7 +216,10 @@ class Trainer:
         self._stop_requested = True
 
     def _save(self, step: int) -> None:
-        self._checkpointer.save(self.save_dir, self.state_dict(), step)
+        """Every rank: gather the random states; rank 0: write."""
+        rngs = self.mesh.gather(self.rng_state())
+        if self.main:
+            self._checkpointer.save(self.save_dir, self.state_dict(rngs), step)
 
     def train(self, max_steps: Optional[int] = None,
               profile_steps: Optional[Tuple[int, int]] = None) -> None:
@@ -190,14 +233,19 @@ class Trainer:
             pass
         try:
             self._loop(max_steps, profile_steps)
+            # rank 0's last checkpoint is on disk before any rank returns
+            # (and may resume from it)
+            self._checkpointer.wait()
+            self.mesh.barrier()
         finally:
             if old is not None:
                 signal.signal(signal.SIGTERM, old)
             self._stop_profile()
             self._checkpointer.wait()
-            self.tb.flush()
-            self.tb_eval.flush()
-            self._write_stats()
+            if self.main:
+                self.tb.flush()
+                self.tb_eval.flush()
+                self._write_stats()
 
     def _start_profile(self, step: int) -> None:
         if self._trace is None:
@@ -239,13 +287,14 @@ class Trainer:
         with closing(self.batches(start_epoch)) as batches:
             for epoch, batch in batches:
                 step = self.global_step
-                if profile_steps is not None:
+                if profile_steps is not None and self.main:
                     if step >= profile_steps[1]:
                         self._stop_profile()
                     elif step >= profile_steps[0]:
                         self._start_profile(step)
-                if self._stop_requested or (max_steps is not None and step >= max_steps):
-                    if self._stop_requested:
+                stop = self.mesh.any(self._stop_requested)
+                if stop or (max_steps is not None and step >= max_steps):
+                    if stop:
                         logger.info("stop requested: saving at step %d", step)
                     self._save(step)
                     return
@@ -261,16 +310,20 @@ class Trainer:
                 if step % cfg.train.log_interval == 0:
                     dt = time.time() - t0
                     t0 = time.time()
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["lr"] = learning_rate(cfg, step, self.steps_per_epoch)
-                    m["steps_per_sec"] = cfg.train.log_interval / max(dt, 1e-9)
-                    self.tb.scalars(step, m)
-                    logger.info(
-                        "epoch %d step %d: g=%.3f d=%.3f mel=%.3f kl=%.3f lr=%.3g "
-                        "(%.2f steps/s)", epoch, step, m["loss/g/total"], m["loss/d/total"],
-                        m["loss/g/mel"], m["loss/g/kl"], m["lr"], m["steps_per_sec"])
+                    metrics = self.mesh.mean_metrics(metrics)   # the global batch's
+                    if self.main:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m["lr"] = learning_rate(cfg, step, self.steps_per_epoch)
+                        m["steps_per_sec"] = cfg.train.log_interval / max(dt, 1e-9)
+                        self.tb.scalars(step, m)
+                        logger.info(
+                            "epoch %d step %d: g=%.3f d=%.3f mel=%.3f kl=%.3f lr=%.3g "
+                            "(%.2f steps/s)", epoch, step, m["loss/g/total"],
+                            m["loss/d/total"], m["loss/g/mel"], m["loss/g/kl"], m["lr"],
+                            m["steps_per_sec"])
                 if step % cfg.train.eval_interval == 0:
-                    self.evaluate(step)
+                    if self.main:
+                        self.evaluate(step)
                     self._save(step)
         self._save(self.global_step)
 

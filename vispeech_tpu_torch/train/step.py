@@ -35,6 +35,17 @@ moments still kept, as optax's masked ``set_to_zero`` does.
 
 Device DSP: an int16 waveform comes in and the masked linear spectrogram
 is computed on the device (``dsp/stft.py``).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank runs the step
+on its share of the global batch and both networks' gradients are averaged
+over the ranks after ``backward``, before the grad norm and the update, so
+every replica takes the global batch's step.  The losses that divide by a
+masked count (``l_length`` by the phonemes, ``kl`` by the frames) are
+rescaled by ``world · local count / global count``, so that the average is
+the global batch's ratio; the others are means over equal local shapes,
+whose average is already the global mean.  Rank r seeds its streams
+``seed + RANK_SEED_STRIDE · r`` (rank 0 as one process does), so the ranks
+draw distinct noise, segments and dropout masks.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from torch import nn
 from vispeech_tpu_torch.config import Config
 from vispeech_tpu_torch.dsp import mel_spectrogram, spec_to_mel, spectrogram
 from vispeech_tpu_torch.ops.masking import grad_global_norm, length_mask, slice_segments
+from vispeech_tpu_torch.parallel import Mesh
 from vispeech_tpu_torch.train import losses as L
 
 # stage (``Synthesizer.bf16_stages``) → the generator's top-level modules
@@ -155,12 +167,15 @@ class TrainStep:
     phoneme_lengths, f0, energy, duration, spec, spec_lengths, wav, sid;
     ``spec`` None and ``wav`` int16 under device DSP).  ``generator`` (on
     that device) draws the posterior noise and segment starts,
-    ``seed_generator`` (CPU) the attention dropout seeds."""
+    ``seed_generator`` (CPU) the attention dropout seeds.  ``mesh`` (None:
+    one process) is the data axis this rank's share of the batch is on."""
 
     def __init__(self, cfg: Config, model_g: nn.Module, model_d: nn.Module,
-                 steps_per_epoch: int = 1000, tf32: Optional[bool] = None):
+                 steps_per_epoch: int = 1000, tf32: Optional[bool] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.model_g, self.model_d = model_g, model_d
+        self.mesh = mesh or Mesh()
         self.steps_per_epoch = steps_per_epoch
         device = next(model_g.parameters()).device
         self.tf32 = device.type == "cuda" if tf32 is None else tf32
@@ -174,7 +189,7 @@ class TrainStep:
         self.native_cpu_convs = device.type == "cpu" and self.d_dtype == torch.bfloat16
         self.opt_g = make_optimizer(cfg, model_g, g_freeze_keys(cfg))
         self.opt_d = make_optimizer(cfg, model_d)
-        seed = cfg.train.seed
+        seed = self.mesh.seed(cfg.train.seed)
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.seed_generator = torch.Generator().manual_seed(seed + 1)
         self.step = 0
@@ -232,11 +247,17 @@ class TrainStep:
          (z, z_p, m_p, logs_p, m_q, logs_q), *_) = self.generator_forward(
             batch, spec, eps_q, ids_slice)
         wav_slice = slice_segments(wav, ids * d.hop_length, seg)
+        # the masked counts of this rank's share → each ratio loss's factor
+        counts = torch.stack([length_mask(batch["phoneme_lengths"],
+                                          batch["phonemes"].shape[1]).sum(),
+                              y_mask.detach().float().sum()])
+        ratio_scale = self.mesh.world_size * counts / self.mesh.sum(counts)
 
         logits_r, logits_g, _, _ = self.discriminate(wav_slice, y_hat.detach())
         loss_d, _, _ = L.discriminator_loss(logits_r, logits_g)
         self.opt_d.zero_grad(set_to_none=True)
         loss_d.backward()
+        self.mesh.average_grads_(list(self.model_d.parameters()))
         grad_norm_d = grad_global_norm(p.grad for p in self.model_d.parameters())
         self.opt_d.step()
 
@@ -256,14 +277,16 @@ class TrainStep:
             "loss/g/gen": L.generator_loss(logits_g)[0],
             "loss/g/fm": L.feature_loss(fmap_r, fmap_g),
             "loss/g/mel": torch.mean(torch.abs(y_mel - y_hat_mel)) * cfg.train.c_mel,
-            "loss/g/dur": l_length,
-            "loss/g/kl": L.kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * cfg.train.c_kl,
+            "loss/g/dur": l_length * ratio_scale[0],
+            "loss/g/kl": L.kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * cfg.train.c_kl
+            * ratio_scale[1],
             "loss/g/pitch": l_pitch,
             "loss/g/energy": l_energy,
         }
         total = sum(metrics.values())
         self.opt_g.zero_grad(set_to_none=True)
         total.backward()
+        self.mesh.average_grads_(list(self.model_g.parameters()))
         grad_norm_g = grad_global_norm(p.grad for p in self.model_g.parameters())
         self.opt_g.step()
         self.step += 1

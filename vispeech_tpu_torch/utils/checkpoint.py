@@ -2,7 +2,10 @@
 own format).
 
 ``ckpt_{step}.pt`` holds the generator and discriminator state dicts, both
-optimizers, the step and the random generators' states, in one file.
+optimizers, the step and the random generators' states, in one file: every
+rank's under ``rank_rng`` (a list in rank order), rank 0's also at the top
+level, where a checkpoint of one process without that list keeps them
+(``rank_rng`` reads both).
 ``AsyncCheckpointer.save`` copies the state to host memory on the calling
 thread (so the step loop may change the tensors at once), then writes,
 renames atomically and prunes to the newest ``keep`` on a background
@@ -78,6 +81,16 @@ def load_checkpoint(base_dir: str, step: Optional[int] = None) -> Optional[Dict]
     if step is None:
         return None
     return torch.load(checkpoint_path(base_dir, step), map_location="cpu", weights_only=False)
+
+
+RNG_KEYS = ("generator", "seed_generator", "torch_rng", "cuda_rng")
+
+
+def rank_rng(state: Dict, rank: int) -> Optional[Dict]:
+    """Rank ``rank``'s random states in checkpoint ``state``, or None when
+    fewer ranks saved it."""
+    rngs = state.get("rank_rng") or [{k: state.get(k) for k in RNG_KEYS}]
+    return rngs[rank] if rank < len(rngs) else None
 
 
 class AsyncCheckpointer:
