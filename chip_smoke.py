@@ -127,9 +127,23 @@ and check them.
    and C = 32 MRF stages at batch 12 and a 16 384-sample segment, folded
    against plain ResBlock1, forward + backward: gradients held in f64,
    device time in bf16 and f32.
+4g. The model axis (also alone as ``--tp``): a (data 1 × model 2) world of
+   two processes on the one card over gloo (NCCL refuses two ranks on one
+   device), full width, batch 12, phase 4's corpus: which gloo collectives
+   take CUDA tensors; 3 Trainer steps in f32 (TF32 off) and in tail_f32
+   against one process's (step 1's losses and grad norms, in f32 every
+   gradient gathered; then the losses and grad norms, and in f32 the
+   parameters gathered, against a control), the ranks with the trainer's own cuDNN
+   settings, their metrics and replicated parameters bit-equal; E's and
+   F's launches on each rank; the model
+   group's eval (A-D on each rank) against one process's on the gathered
+   weights; the bytes a rank sends in a step, counted at the collectives,
+   with their NVLink bound; rank 0's profiled step; then ``torchrun
+   --nproc_per_node 1 ... --model-parallel 1`` through the CLI.
 5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d, 3f,
-   3e and 4c, E's and F's over phases 4 and 4e), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+   3e, 4c and 4g's eval on rank 0, E's and F's over phases 4, 4e and 4g's
+   rank 0), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
 package is not beside this file, or when any phase fails.
@@ -154,8 +168,9 @@ last.
 
     python3 chip_smoke.py --ddp
     python3 chip_smoke.py --fold
+    python3 chip_smoke.py --tp
 
-run phase 4e or 4f alone and print its record as one JSON line last.
+run phase 4e, 4f or 4g alone and print its record as one JSON line last.
 
     python3 chip_smoke.py --e-bwd
 
@@ -2394,7 +2409,7 @@ def ddp_phase(torch, cfg, root, record, device=None):
             for name, model in (("G", dist_trainer.model_g), ("D", dist_trainer.model_d)):
                 params = [p for p in model.parameters() if p.grad is not None]
                 n = sum(p.numel() for p in params)
-                ms = time_ms(lambda: all_reduce_mean_(params, mesh.group, 1), 10)
+                ms = time_ms(lambda: all_reduce_mean_(params, mesh.data_group, 1), 10)
                 b_ms, _ = bound(4 * 4 * n, 0, "float32")
                 reduce_ms[name] = {"ms": ms, "bound_ms": b_ms, "params": n}
                 print(f"ddp: all_reduce_mean_ of {name}'s {n / 1e6:.2f} M gradients "
@@ -2464,6 +2479,492 @@ def ddp_phase(torch, cfg, root, record, device=None):
     return counts
 
 
+TP_STEPS = 3        # phase 4g: steps of the model-axis world and of one process
+TP_TIMEOUT = 900    # phase 4g: seconds the two ranks may take
+# phase 4g: step 1 (before any update) against one process: losses and grad
+# norms relative at the CPU test's bound (tests/test_torch_tp.py) in f32
+# (TF32 off) and at bf16's in tail_f32, whose column-parallel decoder rounds
+# its products apart.  In f32 also each gradient, relative to max(its peak,
+# 1e-3 × the largest peak), within the bound or TP_CONTROL × the largest
+# such deviation of a control, whichever is larger: the control is one
+# process whose weights start one ulp apart (the decoder's bias and gain
+# gradients sum ~10^5 terms that cancel, so one ulp moves them by ~2e-3 of
+# their peak at full width, and another summation order by ~1e-4).  Steps
+# 2-3, where the GAN carries any rounding far: f32 within TP_CONTROL × the
+# control's deviation or the bound; tail_f32 at the bound
+TP_RTOL = {"f32": 1e-5, "tail_f32": 2e-2}
+TP_CONTROL = 10
+# phase 4g, f32: the parameters after 3 steps that lie beyond 1e-6 of one
+# process's (the attention key biases' aside: their gradient is rounding
+# noise) at most this many times the control's count
+TP_OFF_CONTROL = 2
+NVLINK_BYTES = 450e9   # H100 SXM NVLink 4: 900 GB/s both ways, 450 GB/s a direction
+TRAIN_PER_STEP = {"wn_stack_train_fwd": 5, "wn_stack_train_bwd": 5,
+                  "rel_attention_train_fwd": 14, "rel_attention_train_bwd": 14}
+
+
+def _tp_run_cfg(cfg, precision, root, name):
+    """Phase 4g's run: ``precision`` "f32" (fp16_run off) or "tail_f32" (the
+    config's bf16 body), saved under ``root/name_precision``."""
+    train = dataclasses.replace(cfg.train, save_dir=os.path.join(root, f"{name}_{precision}"),
+                                fp16_run=precision != "f32")
+    return dataclasses.replace(cfg, train=train)
+
+
+def _recorded(torch, trainer, precision, on_card):
+    """Record each step's metrics and wall ms (host clock, synchronized) of
+    ``trainer``, and step 1's gradients, whole (gathered over the model
+    group: a collective), on the host, under ``"grads"``; TF32 off in f32
+    (the comparison's), as the trainer's own in tail_f32."""
+    step = trainer.step_fn
+    step.tf32 = on_card and precision != "f32"
+    rec = {"metrics": [], "wall_ms": []}
+    inner = step._step
+
+    def whole(name, t):
+        return t if trainer.plan is None else trainer.plan.whole(name, t)
+
+    def recorded(*args):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = inner(*args)
+        rec["metrics"].append({k: float(v) for k, v in m.items()})
+        rec["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        if len(rec["metrics"]) == 1:
+            rec["grads"] = {
+                **{f"model_g.{k}": whole(k, p.grad).cpu()
+                   for k, p in trainer.model_g.named_parameters() if p.grad is not None},
+                **{f"model_d.{k}": p.grad.cpu()
+                   for k, p in trainer.model_d.named_parameters() if p.grad is not None}}
+        return m
+
+    step._step = recorded
+    return rec
+
+
+def _counted_collectives(torch, fn, batch_size):
+    """``fn()`` with every ``all_gather`` and ``all_reduce`` counted: {kind:
+    [calls, bytes each rank sends]}, kinds "activation gather" (a tensor of
+    the batch's leading dim), "weight gather", "input-grad all-reduce" (the
+    batch's), "gradient all-reduce" (the replicated and partial gradients,
+    flattened) and "other all-reduce" (norms, the grad norm).  A rank of 2
+    sends its slice in a gather and half the tensor twice in a ring
+    all-reduce."""
+    import torch.distributed as dist
+
+    counts = {}
+    gather, reduce = dist.all_gather, dist.all_reduce
+
+    def add(kind, nbytes):
+        c = counts.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+
+    def counted_gather(parts, t, *a, **k):
+        add("activation gather" if t.dim() == 3 and t.shape[0] == batch_size else
+            "weight gather", (len(parts) - 1) * t.numel() * t.element_size())
+        return gather(parts, t, *a, **k)
+
+    def counted_reduce(t, *a, **k):
+        add("input-grad all-reduce" if t.dim() == 3 and t.shape[0] == batch_size else
+            "gradient all-reduce" if t.dim() == 1 and t.numel() >= 2 ** 20 else
+            "other all-reduce", t.numel() * t.element_size())
+        return reduce(t, *a, **k)
+
+    dist.all_gather, dist.all_reduce = counted_gather, counted_reduce
+    try:
+        fn()
+    finally:
+        dist.all_gather, dist.all_reduce = gather, reduce
+    return counts
+
+
+def _deviation(a, b):
+    """Run ``a`` against run ``b`` ({"steps": {"metrics": [...], "grads":
+    step 1's}, "params": {name: tensor}}) → {"step1": the largest relative
+    difference of step 1's losses and grad norms and its key, "ratios":
+    step 1's gradient differences, each over max(its peak in ``b``, 1e-3 ×
+    the largest peak), by parameter, "grads": the largest and its key,
+    "later": the losses' and
+    grad norms' of the later steps, "diff": the largest parameter
+    difference after the last step, "off" and "total": the elements beyond
+    1e-6 and the elements, both but the attention key biases', whose
+    gradient is rounding noise}."""
+    def worst_metric(xs, ys):
+        out = (0.0, None)
+        for x, y in zip(xs, ys):
+            for k in y:
+                rel = abs(x[k] - y[k]) / max(abs(y[k]), 1e-12)
+                if rel > out[0] or out[1] is None:
+                    out = (rel, k)
+        return out
+
+    ma, mb = a["steps"]["metrics"], b["steps"]["metrics"]
+    ga, gb = a["steps"]["grads"], b["steps"]["grads"]
+    if ga.keys() != gb.keys():
+        raise AssertionError("the runs' step-1 gradients are of different parameters")
+    biggest = max(float(g.abs().max()) for g in gb.values())
+    ratios = {k: float((ga[k].float() - g.float()).abs().max())
+              / max(float(g.abs().max()), 1e-3 * biggest) for k, g in gb.items()}
+    grads = max((r, k) for k, r in ratios.items())
+    diff, off, total = 0.0, 0, 0
+    for name, w in b["params"].items():
+        d = (a["params"][name].float() - w.float()).abs()
+        diff = max(diff, float(d.max()))
+        if ".conv_k.bias" not in name:
+            off, total = off + int((d > 1e-6).sum()), total + w.numel()
+    return {"step1": worst_metric(ma[:1], mb[:1]), "ratios": ratios, "grads": grads,
+            "later": worst_metric(ma[1:], mb[1:]), "diff": diff, "off": off, "total": total}
+
+
+def _tp_rank(rank, port, cfg, data_root, root, device):
+    """One rank of phase 4g's (data 1 × model 2) world: both on ``cuda:0``
+    (``device`` "cpu" for a rehearsal) over gloo.  → ``root/rank{rank}.json``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.parallel import make_mesh
+    from vispeech_tpu_torch.train.loop import Trainer
+
+    on_card = device != "cpu"
+    mesh = make_mesh(model=2, device=device, backend="gloo",
+                     init_method=f"tcp://127.0.0.1:{port}")
+    rec = {"rank": rank, "device": str(mesh.device), "backend": "gloo"}
+    try:
+        rec["probe"] = _gloo_probe(torch, mesh) if on_card else {}
+        for precision in ("f32", "tail_f32"):
+            trainer = Trainer(_tp_run_cfg(cfg, precision, root, "tp"), data_root=data_root,
+                              mesh=mesh)
+            steps = _recorded(torch, trainer, precision, on_card)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            # ckpt_3.pt: whole tensors, after Mesh.check_replicas
+            trainer.train(max_steps=TP_STEPS)
+            grads = steps.pop("grads")
+            if rank == 0:
+                torch.save(grads, os.path.join(root, f"tp_grads_{precision}.pt"))
+            del grads
+            r = {"launches": kernels.launch_counts(),
+                 "steps": {k: list(v) for k, v in steps.items()},
+                 "replicated": len(list(trainer.model_d.parameters())) + sum(
+                     k not in trainer.plan.dims for k, _ in trainer.model_g.named_parameters())}
+            if on_card:
+                r["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+            if precision == "tail_f32":
+                kernels.reset_launches()
+                out = trainer.evaluate(TP_STEPS)   # the model group's eval, A-D
+                r["eval_launches"] = kernels.launch_counts()
+                if rank == 0:
+                    np.save(os.path.join(root, "tp_eval.npy"), out["audio"])
+                batches = (b for _, b in trainer.batches())
+                batch = next(batches)
+                batches.close()
+
+                r["collectives"] = _counted_collectives(
+                    torch, lambda: trainer.step_fn(batch), batch["wav"].shape[0])
+                if on_card:
+                    prof = {}
+                    if rank == 0:
+                        profile(torch, "rank 0's model-axis step (tail_f32)",
+                                lambda: trainer.step_fn(batch), 6, prof,
+                                {"gloo copies": "Memcpy"})
+                    else:
+                        trainer.step_fn(batch)
+                    r["profile"] = prof
+            rec[precision] = r
+            for writer in (trainer.tb, trainer.tb_eval):   # rank 0's
+                if writer is not None:
+                    writer.close()
+            del trainer
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=str)
+
+
+def _gloo_probe(torch, mesh):
+    """Which gloo collectives take CUDA tensors on this torch: each on the
+    model group, held to its result.  → {collective: "ok", "wrong result"
+    or the error}."""
+    import torch.distributed as dist
+
+    group, r = mesh.model_group, mesh.model_rank
+    x = torch.full((4,), float(r + 1), device=mesh.device)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return bool(y.eq(3).all())
+
+    def all_gather(dtype=torch.float32):
+        parts = [torch.empty_like(x, dtype=dtype) for _ in range(2)]
+        dist.all_gather(parts, x.to(dtype), group=group)
+        return bool(parts[0].eq(1).all() and parts[1].eq(2).all())
+
+    def all_gather_into_tensor():
+        out = torch.empty(8, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return bool(out[:4].eq(1).all() and out[4:].eq(2).all())
+
+    def reduce_scatter_tensor():
+        out = torch.empty(2, device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return bool(out.eq(3).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0, group=group)
+        return bool(y.eq(1).all())
+
+    out = {}
+    for name, call in (("all_reduce", all_reduce), ("all_gather (list)", all_gather),
+                       ("all_gather bf16", lambda: all_gather(torch.bfloat16)),
+                       ("all_gather_into_tensor", all_gather_into_tensor),
+                       ("reduce_scatter_tensor", reduce_scatter_tensor),
+                       ("broadcast", broadcast)):
+        try:
+            out[name] = "ok" if call() else "wrong result"
+        except Exception as e:   # a collective that gloo lacks for CUDA tensors
+            out[name] = f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:120]}"
+    return out
+
+
+def tp_phase(torch, cfg, root, record, device=None):
+    """Phase 4g (also alone as ``--tp``): the model axis on one card.  NCCL
+    refuses two ranks on one device, so a (data 1 × model 2) world of two
+    processes on ``cuda:0`` runs over gloo, which stages CUDA tensors
+    through the host (the phase passes that backend; the CLI on CUDA stays
+    NCCL): which gloo collectives take CUDA tensors; ``TP_STEPS`` steps of
+    a full-width ``Trainer`` on phase 4's corpus, in f32 (TF32 off) and in
+    tail_f32, against one process's on the same batches (cuDNN
+    deterministic there; the ranks keep the trainer's own settings, and
+    their metrics must be bit-equal and their replicated parameters pass
+    ``Mesh.check_replicas`` at the checkpoint): step 1's losses and grad
+    norms (``TP_RTOL``) and in f32 every gradient gathered, at ``TP_RTOL``
+    or against a control, one process whose weights start one ulp apart
+    (``TP_CONTROL``); the later steps' losses and grad norms, in
+    f32 also the parameters after gathering (elements beyond 1e-6),
+    against the control (``TP_CONTROL``, ``TP_OFF_CONTROL``); E's and F's
+    launches a step on each rank; the model group's eval (A-D on each rank)
+    against one process's on the gathered weights (1e-4 of the peak); the
+    bytes the model axis moves in a step, counted at its collectives, and
+    their bound over NVLink; rank 0's profiled step; step wall times; then
+    ``torchrun --nproc_per_node 1 ... --model-parallel 1`` through the CLI.
+    ``device`` "cpu" rehearses it on the host (no launches, no profile).
+    → rank 0's launches: E and F over the tail_f32 steps, A-D in its eval."""
+    import numpy as np
+
+    import torch.multiprocessing as mp
+
+    from vispeech_tpu_torch.data.dataset import FilelistDataset
+    from vispeech_tpu_torch.models.synthesizer import Synthesizer
+    from vispeech_tpu_torch.text import N_SYMBOLS
+    from vispeech_tpu_torch.train.loop import Trainer, synthesize_utterance
+
+    on_card = device != "cpu"
+    device = device or "cuda"
+    cfg, data_root = _corpus(root, cfg)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    one = {}
+    try:
+        # one process in each precision, and in f32 a control whose weights
+        # start one unit in the last place apart: how far rounding carries
+        for name, precision, ulp in (("f32", "f32", False), ("ulp", "f32", True),
+                                     ("tail_f32", "tail_f32", False)):
+            t = Trainer(_tp_run_cfg(cfg, precision, root, name), data_root=data_root,
+                        device=device)
+            if ulp:
+                with torch.no_grad():
+                    for p in [*t.model_g.parameters(), *t.model_d.parameters()]:
+                        p.mul_(1 + 2 ** -23)
+            steps = _recorded(torch, t, precision, on_card)
+            t.train(max_steps=TP_STEPS)
+            one[name] = {"steps": steps, "params": {
+                f"{net}.{k}": v.detach().cpu() for net in ("model_g", "model_d")
+                for k, v in getattr(t, net).state_dict().items()}}
+            del t
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, cfg, data_root, root, device))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(t0 + TP_TIMEOUT - time.perf_counter(), 1.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    print(f"tp: two ranks on {device} over gloo, (data 1 x model 2), the trainer's own cuDNN "
+          f"settings (deterministic {torch.backends.cudnn.deterministic}, benchmark "
+          f"{torch.backends.cudnn.benchmark}): exit codes {codes} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if codes != [0, 0]:
+        raise AssertionError(f"phase 4g's ranks exited {codes} (None: hung)")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if on_card:
+        print(f"tp: gloo collectives on CUDA tensors: {ranks[0]['probe']}")
+        for name in ("all_reduce", "all_gather (list)", "all_gather bf16"):
+            if ranks[0]["probe"][name] != "ok":
+                raise AssertionError(f"gloo's {name} on CUDA tensors: {ranks[0]['probe'][name]}")
+
+    control = _deviation(one["ulp"], one["f32"])
+    print(f"tp: f32 control, one process whose weights start one unit in the last place "
+          f"apart, against one process: step 1's losses and grad norms within "
+          f"{control['step1'][0]:.3e} relative ({control['step1'][1]}), its gradients "
+          f"{control['grads'][0]:.3e} ({control['grads'][1]}); steps 2-{TP_STEPS} "
+          f"{control['later'][0]:.3e} ({control['later'][1]}); parameters "
+          f"{control['diff']:.3e}, {control['off']} of {control['total']} elements beyond 1e-6")
+    for precision in ("f32", "tail_f32"):
+        for rank in ranks:
+            got = rank[precision]["steps"]["metrics"]
+            if len(got) != TP_STEPS or got != ranks[0][precision]["steps"]["metrics"]:
+                raise AssertionError(f"{precision}: the ranks' metrics differ or miss steps")
+        print(f"tp: {precision}: both ranks' metrics bit-equal over {TP_STEPS} steps; "
+              f"Mesh.check_replicas passed at ckpt_{TP_STEPS}.pt: "
+              f"{ranks[0][precision]['replicated']} replicated tensors bit-equal on both ranks")
+        state = torch.load(os.path.join(root, f"tp_{precision}", f"ckpt_{TP_STEPS}.pt"),
+                           map_location="cpu", weights_only=False)
+        world = {"steps": {**ranks[0][precision]["steps"], "grads": torch.load(
+                     os.path.join(root, f"tp_grads_{precision}.pt"), weights_only=False)},
+                 "params": {f"{net}.{k}": v for net in ("model_g", "model_d")
+                            for k, v in state[net].items()}}
+        dev = _deviation(world, one[precision])
+        del world, state
+        rtol = TP_RTOL[precision]
+        ratios = dev.pop("ratios")
+        later, max_off, grads_ok, grads_note = rtol, None, True, "no bound"
+        if precision == "f32":
+            later = max(rtol, TP_CONTROL * control["later"][0])
+            max_off = TP_OFF_CONTROL * control["off"]
+            bound = max(rtol, TP_CONTROL * control["grads"][0])
+            # how far each tensor lies from the control's deviation on it
+            over = max((r / max(rtol, control["ratios"][k]), k) for k, r in ratios.items())
+            beyond = sum(r > rtol for r in ratios.values())
+            grads_ok = dev["grads"][0] <= bound
+            grads_note = (f"bound {bound:.3g}; {beyond} of {len(ratios)} tensors beyond "
+                          f"{rtol:.0e}; the largest over max({rtol:.0e}, the control's on the "
+                          f"same tensor) {over[0]:.3f} ({over[1]})")
+        checks = {"step 1's losses and grad norms": dev["step1"][0] <= rtol,
+                  "step 1's gradients": grads_ok,
+                  "the later losses and grad norms": dev["later"][0] <= later,
+                  "the parameters": max_off is None or dev["off"] <= max_off}
+        ok = all(checks.values())
+        print(f"tp: {precision}, {TP_STEPS} steps, the model-axis world against one process: "
+              f"step 1's losses and grad norms within {dev['step1'][0]:.3e} relative "
+              f"({dev['step1'][1]}; bound {rtol:.3g}), its gradients, gathered, "
+              f"{dev['grads'][0]:.3e} of max(peak, 1e-3 x the largest) ({dev['grads'][1]}; "
+              f"{grads_note}); "
+              f"steps 2-{TP_STEPS} {dev['later'][0]:.3e} ({dev['later'][1]}; bound {later:.3g}); "
+              f"parameters, gathered: largest difference {dev['diff']:.3e}, {dev['off']} of "
+              f"{dev['total']} elements beyond 1e-6"
+              + (f" (bound {max_off})" if max_off is not None else " (no bound)")
+              + f" {'ok' if ok else 'FAIL: ' + str([k for k, v in checks.items() if not v])}")
+        print(f"tp: {precision} step wall ms (host clock, synchronized): one process "
+              f"{[round(x, 2) for x in one[precision]['steps']['wall_ms']]}, rank 0 "
+              f"{[round(x, 2) for x in ranks[0][precision]['steps']['wall_ms']]}, rank 1 "
+              f"{[round(x, 2) for x in ranks[1][precision]['steps']['wall_ms']]}"
+              + (f"; peak memory a rank {[round(r[precision]['peak_mib']) for r in ranks]} "
+                 f"MiB" if on_card else ""))
+        record[precision] = {**{k: dev[k] for k in ("step1", "grads", "later", "diff", "off",
+                                                   "total")},
+                             "one_ms": one[precision]["steps"]["wall_ms"],
+                             "rank_ms": [r[precision]["steps"]["wall_ms"] for r in ranks]}
+        if not ok:
+            raise AssertionError(f"phase 4g: the {precision} model axis is off one process")
+    control.pop("ratios")
+    record["f32_control"] = control
+
+    want = {k: TP_STEPS * v for k, v in TRAIN_PER_STEP.items()}
+    tail = [r["tail_f32"] for r in ranks]
+    if on_card:
+        for r, t in enumerate(tail):
+            got = {k: t["launches"][k] for k in want}
+            print(f"tp: rank {r}'s E/F launches over {TP_STEPS} tail_f32 steps {got}, "
+                  f"expected {want}; its eval's A-D "
+                  f"{ {k: t['eval_launches'][k] for k in EVAL_PER_CALL} }")
+            if got != want or any(t["eval_launches"][k] != v for k, v in EVAL_PER_CALL.items()):
+                raise AssertionError(f"phase 4g: rank {r}'s launches are off")
+
+    # the model group's eval against one process's on the gathered weights
+    state = torch.load(os.path.join(root, "tp_tail_f32", f"ckpt_{TP_STEPS}.pt"),
+                       map_location="cpu", weights_only=False)
+    model = Synthesizer.from_config(cfg, N_SYMBOLS)
+    model.load_state_dict(state["model_g"])
+    model.to(device)
+    val = FilelistDataset(cfg.data.validation_files, cfg.data, data_root)
+    want_audio = synthesize_utterance(model, val, 0, 1024, seed=TP_STEPS)["audio"]
+    got_audio = np.load(os.path.join(root, "tp_eval.npy"))
+    err = float(np.abs(got_audio - want_audio).max()) if got_audio.shape == want_audio.shape \
+        else float("inf")
+    peak = float(np.abs(want_audio).max())
+    print(f"tp: the model group's eval ({got_audio.shape[0]} samples) against one process's "
+          f"on the gathered weights: largest difference {err:.3e} ({err / peak:.3e} of the "
+          f"peak, bound 1e-4) {'ok' if err <= 1e-4 * peak else 'FAIL'}")
+    if not err <= 1e-4 * peak:
+        raise AssertionError("phase 4g: the model group's eval is off one process's")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+
+    coll = tail[0]["collectives"]
+    total_bytes = sum(b for _, b in coll.values())
+    print(f"tp: the model axis in one tail_f32 step at batch {cfg.train.batch_size} (rank 0, "
+          f"counted at its collectives; bytes a rank sends): " + ", ".join(
+              f"{k} {n} calls {b / 2 ** 20:.1f} MiB" for k, (n, b) in sorted(coll.items()))
+          + f"; total {total_bytes / 2 ** 20:.1f} MiB, over NVLink (450 GB/s a direction, not "
+          f"measured) at least {1e3 * total_bytes / NVLINK_BYTES:.3f} ms")
+    prof = tail[0].get("profile") or {}
+    if prof:
+        print(f"tp: rank 0's profiled tail_f32 step: wall {prof['wall_ms']:.2f} ms, device "
+              f"busy {prof['busy_ms']:.2f} ms, device copies (gloo's staging among them) "
+              f"{prof['matched'].get('gloo copies')}; {card_line()}")
+    record.update(probe=ranks[0]["probe"], collectives=coll, nvlink_bound_ms=1e3 * total_bytes
+                  / NVLINK_BYTES, profile=prof, eval_err=err)
+
+    # the CLI under torchrun at --model-parallel 1, one process
+    from vispeech_tpu_torch.config import save_config
+
+    cli_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, save_dir=os.path.join(root, "cli")))
+    cfg_path = os.path.join(root, "cli_config.json")
+    save_config(cli_cfg, cfg_path)
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = ROOT
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "vispeech_tpu_torch.train.cli", "-c", cfg_path, "--data-root", data_root,
+         "--max-steps", "1", "--model-parallel", "1"] + ([] if on_card else ["--device", "cpu"]),
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    print(f"tp: torchrun --nproc_per_node 1 ... --model-parallel 1 --max-steps 1: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0 or "ckpt_1.pt" not in os.listdir(cli_cfg.train.save_dir):
+        print(proc.stderr[-4000:])
+        raise AssertionError("the CLI at --model-parallel 1 failed")
+    counts = {k: tail[0]["launches"][k] for k in TRAIN_PER_STEP}
+    counts.update({k: tail[0]["eval_launches"][k] for k in EVAL_PER_CALL})
+    return counts
+
+
 FOLD_BATCH = 12    # phase 4f: the trainer's batch (configs/config.json)
 FOLD_TOL = 1e-5    # phase 4f: f64 (weights folded in f32): each gradient within this of its peak
 FOLD_REPS = 3      # phase 4f: forward + backward calls a profiled window
@@ -2477,9 +2978,10 @@ def fold_phase(torch, cfg, record, dev=None, batch=FOLD_BATCH):
     ResBlock1 stage, forward and backward.  First the gradients of x and
     of every weight of the two routes held against each other in f64
     (each within ``FOLD_TOL`` of its peak: the same math, summed in
-    another order, the folded weights rounded to f32 as ``folded_units``
-    folds them: f64 holds the routes' math apart from cuDNN's f32
-    rounding, which on either route is far larger); then each route's
+    another order, both routes' weights in f64: f64 holds the routes' math
+    apart from cuDNN's f32 rounding, which on either route is far larger,
+    and a leaky ReLU's kink turns a weight's rounding into a gradient's
+    jump); then each route's
     device time a forward + backward
     (torch.profiler, ``FOLD_REPS`` calls) in bf16 (the default tail_f32
     decoder body) and in f32 with TF32 on (the f32 option's step), and the
@@ -2659,6 +3161,17 @@ def main() -> int:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"root": ROOT, "card": card_line(), "ddp": rec}, default=str))
         return 0
+    if sys.argv[1:] == ["--tp"]:
+        _build.build_all()
+        rec = {}
+        root = tempfile.mkdtemp(prefix="vispeech_tp_")
+        try:
+            tp_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), root,
+                     rec)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"root": ROOT, "card": card_line(), "tp": rec}, default=str))
+        return 0
     if sys.argv[1:] == ["--fold"]:
         rec = {}
         fold_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), rec)
@@ -2751,13 +3264,21 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fold_phase(torch, cfg, {})
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vispeech_tp_")
+    try:
+        tp_counts = tp_phase(torch, cfg, root, {})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # A, B, C and D count the serving run, the VC run, the text phase, the
-    # HTTP phase and the trainer's evals; E and F the training run and the
-    # 1-rank mesh's
+    # HTTP phase, the trainer's evals and the model group's eval (rank 0's);
+    # E and F the training run, the 1-rank mesh's and the model axis's
+    # (rank 0's)
     counts = {k: v + vc_counts[k] + text_counts[k] + http_counts[k]
-              + trainer_counts.get(k, 0) for k, v in counts.items()}
-    counts.update({k: v + ddp_counts[k] for k, v in train_counts.items() if "_train_" in k})
+              + trainer_counts.get(k, 0) + tp_counts.get(k, 0) for k, v in counts.items()}
+    counts.update({k: v + ddp_counts[k] + tp_counts[k] for k, v in train_counts.items()
+                   if "_train_" in k})
     kernels = [dict(name=name, route="cuda",
                     source=f"vispeech_tpu_torch/csrc/{name.rsplit('_', 1)[0] if '_train_' in name else name}.cu",
                     replaces=REPLACES[name], launches=counts[name],

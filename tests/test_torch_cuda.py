@@ -689,3 +689,26 @@ def test_server_on_the_card_launches_the_serving_kernels(device):
     assert all(counts[k] > 0 for k in ("rel_attention", "wn_stack", "mrf_stage",
                                        "mrf_stage_folded")), counts
     assert all(v == 0 for k, v in counts.items() if "_train_" in k), counts
+
+
+@pytest.mark.cuda
+def test_model_axis_layers_on_the_card(device, tmp_path):
+    """The model axis's sharded layers (``tests/torch_tp_jobs.py``'s Conv1d,
+    WNConv1d column-parallel and weight-gathered, WNConvTranspose1d with
+    its cross-shard norm, ResBlock1) on two ranks sharing ``cuda:0`` over
+    gloo, against the whole layer on the card, in f64: output, input
+    gradient and every parameter gradient within 1e-10."""
+    from test_torch_ddp import Job
+    from torch_tp_jobs import job_layers_on_one_card, layer_grads
+
+    Job(tmp_path, 2, job_layers_on_one_card, str(tmp_path)).join()
+    want = layer_grads(None, device)
+    for r in range(2):
+        got = torch.load(tmp_path / f"card{r}.pt", weights_only=False)
+        for name, (y, dx, grads, sharded) in got.items():
+            want_y, want_dx, want_grads, _ = want[name]
+            assert sharded, name
+            assert float((y - want_y).abs().max()) <= 1e-10, name
+            assert float((dx - want_dx).abs().max()) <= 1e-10, name
+            for k, g in grads.items():
+                assert float((g - want_grads[k]).abs().max()) <= 1e-10, (name, k)

@@ -104,6 +104,9 @@ class Job:
 def _rank_main(rank, world, job, init, args):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     torch.set_num_threads(1)
+    # tensorboardX imports google.cloud.storage, for gs:// logs, where it is
+    # installed: seconds a process.  The jobs log to local dirs.
+    sys.modules.setdefault("google.cloud.storage", None)
     job(init, *args)
 
 
@@ -494,8 +497,14 @@ def test_mesh_without_a_launcher_is_a_world_of_one(monkeypatch):
 def test_mesh_refuses_what_it_cannot_run(monkeypatch):
     import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="launcher"):   # model > 1 in one process
         make_mesh(model=2, device="cpu")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="does not divide the world size 2"):
+        make_mesh(model=3, device="cpu")
+    with pytest.raises(ValueError, match="data=2"):
+        make_mesh(data=2, model=2, device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "1")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

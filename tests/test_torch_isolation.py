@@ -42,4 +42,7 @@ def test_sources_import_nothing_of_the_jax_package():
                  for p in PORT_FILES for m in pattern.finditer(p.read_text())]
     assert not offenders, offenders
     assert len(PORT_FILES) > 20
-    assert PORT / "parallel" / "mesh.py" in PORT_FILES
+    for name in ("mesh.py", "sharding.py", "tensor.py"):
+        assert PORT / "parallel" / name in PORT_FILES, name
+    assert "vispeech_tpu_torch.parallel.sharding" in _port_modules()
+    assert "vispeech_tpu_torch.parallel.tensor" in _port_modules()

@@ -20,6 +20,16 @@ from vispeech_tpu_torch.data.dataset import (LOADER_THREAD, BucketSampler, Filel
 from vispeech_tpu_torch.data.synthetic import write_synthetic_dataset
 from vispeech_tpu_torch.train.loop import Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One PyTorch thread: xdist's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HOP = 8
 CONFIG = {   # tests/test_torch_train.py's tiny configuration
     "train": {"segment_size": 64, "batch_size": 2, "fp16_run": False, "log_interval": 1,

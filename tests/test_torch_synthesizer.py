@@ -44,6 +44,16 @@ from vispeech_tpu_torch.ops import policy as port_policy
 from vispeech_tpu_torch.text import N_SYMBOLS
 from vispeech_tpu_torch.utils.jax_weights import load_flax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One PyTorch thread: xdist's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 HOP = 4
 CFG = {
     "train": {"segment_size": 4 * HOP, "fp16_run": False},

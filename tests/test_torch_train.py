@@ -66,6 +66,15 @@ B, N, T, HOP, SEG = 2, 6, 16, 8, 64
 REL, ABS = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One PyTorch thread: xdist's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a, dtype=None):
     out = torch.from_numpy(np.array(a))
     return out if dtype is None else out.to(dtype)
@@ -101,9 +110,9 @@ def setup():
     return _setup()
 
 
-def _setup():
-    jcfg = jax_config_from_dict(TINY)
-    pcfg = config_from_dict(TINY)
+def _setup(cfg_dict=TINY):
+    jcfg = jax_config_from_dict(cfg_dict)
+    pcfg = config_from_dict(cfg_dict)
     b = make_batch()
     d = jcfg.data
     wav = jnp.asarray(b["wav"])
@@ -260,10 +269,13 @@ def jax_mel_of_spec(spec, d):
 
 @pytest.fixture(scope="module")
 def jax_step(setup):
+    return _jax_step(setup)
+
+
+def _jax_step(s):
     """JAX's step on setup's batch against the scale discriminator and one
     period (they keep the JAX compile short): both losses, both networks'
     flat weights and their gradients as the port's state dicts."""
-    s = setup
     jd = JaxMPD(periods=(2,))
     params_d = {k: v for k, v in s["params_d"].items() if k in ("disc_s", "disc_p2")}
     ld, gd, lg, gg = _jax_step_grads(s, jd, params_d)
@@ -332,6 +344,29 @@ def test_two_ranks_on_halves_match_jax(setup, jax_step, tmp_path):
         assert all(torch.equal(a, got[1][net][k]) for k, a in got[0][net].items())
     hold_step({k: torch.tensor(v) for k, v in got[0]["metrics"].items()}, got[0]["g"],
               got[0]["d"], jax_step)
+
+
+def test_model_axis_step_matches_jax(tmp_path):
+    """The port's step on a (data 1 × model 2) mesh of gloo ranks, at
+    ``torch_tp_jobs.TP_TINY`` (wide enough that the model axis shards its
+    decoder and WaveNet input convs), against JAX's step on the same batch
+    (GSPMD's sharding leaves JAX's math as it is), at the tolerances of the
+    one-process step: both losses, both grad norms and every gradient,
+    the sharded ones gathered whole."""
+    from test_torch_ddp import Job
+    from torch_tp_jobs import TP_TINY, job_model_axis_step
+
+    s = _setup(TP_TINY)
+    j = _jax_step(s)
+    Job(tmp_path, 2, job_model_axis_step, str(tmp_path), TP_TINY, N_VOCAB, j["flat_g"],
+        j["flat_d"], {k: v.clone() for k, v in _step_batch(s).items()}, t(s["eps"]),
+        t(s["ids"])).join()
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    assert got[0]["sharded"] and got[0]["metrics"] == got[1]["metrics"]
+    for net in ("g", "d"):
+        assert all(torch.equal(a, got[1][net][k]) for k, a in got[0][net].items())
+    hold_step({k: torch.tensor(v) for k, v in got[0]["metrics"].items()}, got[0]["g"],
+              got[0]["d"], j)
 
 
 def test_adamw_matches_optax():
@@ -445,7 +480,7 @@ def test_trainer_steps_saves_and_resumes(tmp_path):
     assert stats["global_step"] == 3
 
 
-def test_cli_trains_on_cpu_and_refuses_what_waits(tmp_path, capsys):
+def test_cli_trains_on_cpu_and_refuses_what_waits(tmp_path, capsys, monkeypatch):
     from vispeech_tpu_torch.train import cli
 
     cfg_path, data_root = _workspace(tmp_path)
@@ -454,9 +489,11 @@ def test_cli_trains_on_cpu_and_refuses_what_waits(tmp_path, capsys):
     assert (tmp_path / "run" / "ckpt_2.pt").exists()
     cli.main(args[:-3] + ["3", "--device", "cpu"])   # resumes from ckpt_2.pt
     assert (tmp_path / "run" / "ckpt_3.pt").exists()
+    monkeypatch.setenv("WORLD_SIZE", "2")   # as torchrun would: refused before joining
     with pytest.raises(SystemExit) as exc:
-        cli.main(args + ["--model-parallel", "2"])
-    assert exc.value.code != 0 and "queue 1 item 7" in capsys.readouterr().err
+        cli.main(args + ["--model-parallel", "3"])
+    assert exc.value.code != 0 and "does not divide the world size 2" in \
+        capsys.readouterr().err
 
 
 def test_host_spectrogram_batches_match_device_dsp(tmp_path):

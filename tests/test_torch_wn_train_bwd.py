@@ -20,6 +20,16 @@ import torch
 from vispeech_tpu_torch.ops.kernels import _build
 from vispeech_tpu_torch.ops.kernels import wn_stack_train as E
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One PyTorch thread: xdist's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C = 192
 
 

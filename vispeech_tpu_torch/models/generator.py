@@ -15,6 +15,10 @@ packs no weights.  Training passes ``fused=False``: C and D have no
 backward, and every stage runs the plain, differentiable ResBlock1 (the
 JAX trainer's folded MRF computes the same math).  ``tail_f32`` runs the
 last leaky ReLU, conv_post and tanh in f32 whatever the body's dtype.
+Sharded on the model axis (``parallel/sharding.py``), conv_pre, the ups
+and the ResBlock convs of stages of 64 channels or more run
+column-parallel (``ops/layers.py``), and kernels C and D take the whole
+weights that ``ResBlock1.packed`` gathers.
 """
 
 from __future__ import annotations

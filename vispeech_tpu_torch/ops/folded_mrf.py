@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vispeech_tpu_torch.ops.layers import at_least_f32
+
 # (w1 [U, k, C, C], b1 [U, 1, C], w2, b2): ResBlock1.packed() per branch
 BranchWeights = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -59,8 +61,9 @@ def fold_conv_weights(w: torch.Tensor, b: torch.Tensor, dilation: int, fold: int
 
 def folded_units(packed: Sequence[BranchWeights], dilations, fold: int):
     """Per branch, per unit: ((Wf1, bf1, pads1), (Wf2, bf2, pads2)), folded
-    from the f32 weights."""
-    return [[tuple(fold_conv_weights(w[u].float(), bias[u, 0].float(), d, fold)
+    from the f32 weights (f64 weights stay f64, as ``ops/layers.py``'s
+    weight norm keeps them)."""
+    return [[tuple(fold_conv_weights(at_least_f32(w[u]), at_least_f32(bias[u, 0]), d, fold)
                    for w, bias, d in ((w1, b1, dil), (w2, b2, 1)))
              for u, dil in enumerate(dils)]
             for (w1, b1, w2, b2), dils in zip(packed, dilations)]
@@ -76,9 +79,9 @@ def mrf_stage_folded(x: torch.Tensor, packed: Sequence[BranchWeights],
                      kernel_sizes: Sequence[int], dilations: Sequence[Sequence[int]],
                      fold: int) -> torch.Tensor:
     """One MRF stage (the ResBlock1 branches averaged) in folded layout:
-    x [B, T, C] → [B, T, C], T % fold == 0.  Weights are folded in f32 and
-    cast to x's dtype; the convs and the state run in x's dtype, as the JAX
-    package's XLA path does."""
+    x [B, T, C] → [B, T, C], T % fold == 0.  Weights are folded in f32 (f64
+    weights in f64) and cast to x's dtype; the convs and the state run in
+    x's dtype, as the JAX package's XLA path does."""
     B, T, C = x.shape
     if T % fold:
         raise ValueError(f"T={T} not divisible by fold={fold}")

@@ -6,8 +6,18 @@ channel-first inside.  Weights keep torch's layout: conv [cout, cin, k],
 transposed conv [cin, cout, k], and weight norm as its own ``weight_g`` /
 ``weight_v`` parameters (w = g·v/‖v‖, ‖·‖ with ε = 1e-12 inside the square
 root, as in the JAX package).  Weights are cast to the activation dtype at
-each call; the weight norm is computed in f32, at each call or once by
-``freeze_weight_norm`` for a model whose weights no longer change.
+each call; the weight norm is computed in f32 (in f64 for f64 weights),
+at each call or once by ``freeze_weight_norm`` for a model whose weights
+no longer change.
+
+Sharded on the model axis (``parallel/sharding.py`` sets ``tp``, a
+``parallel.tensor.ModelShard``, and keeps the rank's slice of the weight's
+output channels): a column-parallel conv (``tp.column``) computes its own
+output channels from its input (``tp.copy``) and all-gathers them, its
+whole ``weight_g`` and ``bias`` read through the rank's slice; a
+``WNConv1d`` whose ``tp`` is not column-parallel gathers ``weight_v`` and
+computes every channel.  ``weight`` is always the whole effective weight
+(gathered), which the kernels' packers read.
 """
 
 from __future__ import annotations
@@ -42,10 +52,16 @@ def _conv_cf(x, weight, bias, pads, dilation, stride=1, groups=1):
     return F.conv1d(F.pad(x, pads), weight, bias, stride, 0, dilation, groups)
 
 
-def _weight_norm(v: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
-    vf = v.float()
-    norm = torch.sqrt(torch.sum(vf * vf, dim=dims, keepdim=True) + 1e-12)
-    return vf * (g.float() / norm)
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in f32, or in f64 when it is f64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _weight_norm(v: torch.Tensor, g: torch.Tensor, dims, squares=None) -> torch.Tensor:
+    """g·v/‖v‖ with ‖v‖² summed over ``dims``, or given as ``squares``."""
+    vf = at_least_f32(v)
+    sq = torch.sum(vf * vf, dim=dims, keepdim=True) if squares is None else squares
+    return vf * (at_least_f32(g) / torch.sqrt(sq + 1e-12))
 
 
 class Conv1d(nn.Module):
@@ -54,6 +70,7 @@ class Conv1d(nn.Module):
 
     stride = 1
     groups = 1
+    tp = None   # parallel.tensor.ModelShard of a conv sharded on the model axis
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1, dilation: int = 1,
                  padding: Padding = None, bias: bool = True):
@@ -63,27 +80,53 @@ class Conv1d(nn.Module):
         self.dilation = dilation
         self.pads = _pads(kernel_size, dilation, padding)
 
+    def local_weight(self) -> torch.Tensor:
+        """The effective weight of the output channels this rank computes
+        (the weight itself: this rank's slice when sharded)."""
+        return self.weight
+
     def forward_cf(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_cf(x, self.weight, self.bias, self.pads, self.dilation, self.stride,
-                        self.groups)
+        tp = self.tp
+        if tp is None or not tp.column:
+            return _conv_cf(x, self.weight, self.bias, self.pads, self.dilation, self.stride,
+                            self.groups)
+        bias = None if self.bias is None else tp.own(self.bias, 0)
+        y = _conv_cf(tp.copy(x), self.local_weight(), bias, self.pads, self.dilation,
+                     self.stride, self.groups)
+        return tp.gather(y, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.weight.shape[-1] == 1 and self.stride == 1 and self.groups == 1:
+        if self.tp is None and self.weight.shape[-1] == 1 and self.stride == 1 \
+                and self.groups == 1:
             bias = None if self.bias is None else self.bias.to(x.dtype)
             return F.linear(x, self.weight[:, :, 0].to(x.dtype), bias)
         return self.forward_cf(x.transpose(1, 2)).transpose(1, 2)
 
 
 class _WeightNormed:
-    """w = g·v/‖v‖ over dims (1, 2) of ``weight_v``, or the folded copy."""
+    """w = g·v/‖v‖ over dims (1, 2) of ``weight_v``, or the folded copy.
+    ``out_dim``: the dim of ``weight_v`` that holds the output channels."""
 
     folded = None
+    tp = None
+    out_dim = 0
 
     @property
     def weight(self) -> torch.Tensor:
         if self.folded is not None:
             return self.folded
-        return _weight_norm(self.weight_v, self.weight_g, (1, 2))
+        if self.tp is None:
+            return _weight_norm(self.weight_v, self.weight_g, (1, 2))
+        if not self.tp.column:
+            return _weight_norm(self.tp.gather(self.weight_v, self.out_dim), self.weight_g,
+                                (1, 2))
+        return self.tp.gather(self.local_weight(), self.out_dim)
+
+    def local_weight(self) -> torch.Tensor:
+        """The effective weight of this rank's output channels (sharded)."""
+        if self.folded is not None:
+            return self.tp.own(self.folded, self.out_dim)
+        return self._local_weight_norm()
 
 
 def freeze_weight_norm(model: nn.Module) -> nn.Module:
@@ -113,10 +156,16 @@ class WNConv1d(_WeightNormed, Conv1d):
         self.pads = _pads(kernel_size, dilation, padding)
         self.stride, self.groups = stride, groups
 
+    def _local_weight_norm(self) -> torch.Tensor:
+        # the norm is per output channel: a slice of the gains, no collective
+        return _weight_norm(self.weight_v, self.tp.own(self.weight_g, 0), (1, 2))
+
 
 class WNConvTranspose1d(_WeightNormed, nn.Module):
     """Weight-normalised ConvTranspose1d(k, stride=u, padding=(k−u)//2):
     output length T·u.  ``weight_v`` [cin, cout, k], norm per input channel."""
+
+    out_dim = 1
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int):
         super().__init__()
@@ -126,10 +175,20 @@ class WNConvTranspose1d(_WeightNormed, nn.Module):
         self.stride = stride
         self.padding = (kernel_size - stride) // 2
 
+    def _local_weight_norm(self) -> torch.Tensor:
+        # ‖v‖² per input channel sums over output channels on every rank
+        vf = at_least_f32(self.weight_v)
+        sq = self.tp.all_reduce(torch.sum(vf * vf, dim=(1, 2), keepdim=True))
+        return _weight_norm(vf, self.weight_g, (1, 2), sq)
+
     def forward_cf(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                                  stride=self.stride,
-                                  padding=self.padding)
+        if self.tp is None:
+            return F.conv_transpose1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                                      stride=self.stride, padding=self.padding)
+        y = F.conv_transpose1d(self.tp.copy(x), self.local_weight().to(x.dtype),
+                               self.tp.own(self.bias, 0).to(x.dtype), stride=self.stride,
+                               padding=self.padding)
+        return self.tp.gather(y, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_cf(x.transpose(1, 2)).transpose(1, 2)

@@ -39,7 +39,8 @@ class ResBlock1(nn.Module):
 
     def packed(self) -> Tuple[torch.Tensor, ...]:
         """Effective weights for kernel C: (w1 [U, k, C, C], b1 [U, 1, C], w2,
-        b2), w[u, tap, cin, cout]."""
+        b2), w[u, tap, cin, cout]; whole, gathered over the model axis when
+        the convs are sharded."""
         def stack(convs):
             w = torch.stack([c.weight.permute(2, 1, 0) for c in convs])
             b = torch.stack([c.bias.float()[None] for c in convs])

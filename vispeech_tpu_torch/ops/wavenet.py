@@ -14,6 +14,10 @@ training route, and the switch off raises); otherwise through kernel B's
 version on a CPU tensor.  On the card with autograd off, B's prepared
 weights come from ``kernel_operands``, kept while the frozen weights stay
 the same; on the CPU, or whenever autograd is on, nothing is kept.
+Sharded on the model axis (``parallel/sharding.py``), the input convs hold
+slices of their ``weight_v``: ``packed`` reads each conv's ``weight``,
+which gathers it whole, and the gather's backward hands kernel E's dW_in
+back as the rank's slice.
 """
 
 from __future__ import annotations

@@ -13,10 +13,11 @@ by torchrun, one process a GPU,
     torchrun --standalone --nproc_per_node N -m vispeech_tpu_torch.train.cli \\
         -c configs/config.json --data-root DIR
 
-each process joins the data axis (``parallel.make_mesh``: NCCL, or gloo
-with ``--device cpu``) and trains on its share of a global batch of
-``batch_size × N``.  ``--model-parallel`` > 1 is refused: the model axis
-waits in ``ROADMAP.md`` queue 1 item 7b.
+each process joins the mesh (``parallel.make_mesh``: NCCL, or gloo with
+``--device cpu``).  ``--model-parallel M`` (M divides N) makes N / M data
+ranks of M model ranks each: the ranks of a model group hold slices of
+the generator's sharded parameters (tensor parallelism) and train on the
+same share of a global batch of ``batch_size × N / M``.
 """
 
 from __future__ import annotations
@@ -32,14 +33,12 @@ def main(argv=None):
     p.add_argument("--data-root", default="dataset")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="model ranks per data rank (tensor parallelism); divides the world size")
     p.add_argument("--profile", default=None, metavar="START:STOP",
                    help="trace steps [START, STOP) into save_dir/profile (a Chrome trace "
                         "for Perfetto or chrome://tracing)")
     args = p.parse_args(argv)
-    if args.model_parallel != 1:
-        p.error("--model-parallel > 1 (the model axis) is not ported yet: "
-                "ROADMAP.md queue 1 item 7b")
     profile_steps = None
     if args.profile:
         lo, sep, hi = args.profile.partition(":")
@@ -55,7 +54,10 @@ def main(argv=None):
     if args.model_dir:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                                  save_dir=args.model_dir))
-    mesh = make_mesh(device=args.device)   # a world of one without torchrun
+    try:   # a world of one without torchrun
+        mesh = make_mesh(model=args.model_parallel, device=args.device)
+    except ValueError as e:
+        p.error(str(e))
     try:
         trainer = Trainer(cfg, data_root=args.data_root, mesh=mesh)
         trainer.resume()

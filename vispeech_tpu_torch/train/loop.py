@@ -16,20 +16,28 @@ the device's peak memory over them.  ``resume`` restores the newest
 ``ckpt_*.pt``, or, when there is none, continues the JAX package's newest
 ``ckpt_*.npz`` (``utils/jax_weights.py``).
 
-With a ``mesh`` of several ranks each rank loads its share of every
+With a ``mesh`` of several data ranks each loads its share of every
 global batch (``BucketSampler``'s ``num_replicas`` and ``rank``: every rank
 draws the same bucket at a step) onto its own device, and the step
-averages the gradients.  Rank 0 alone writes the run directory (logger
-file, ``config.json``, ``githash``, TensorBoard, evals, the profiler's
-trace, ``train_stats.json`` and the checkpoints, which hold every rank's
-random generators, gathered; each rank restores its own on resume).  The
+averages the gradients.  With a model axis (``--model-parallel``) the
+ranks of one model group load the same share and draw the same random
+streams, and the generator is sharded after it is built
+(``parallel/sharding.py``, ``require_match``): each rank keeps its slice of
+the sharded parameters and of their AdamW moments.  Checkpoints hold whole
+tensors: every rank checks that its group's replicated parameters are
+bit-equal and gathers its group's slices, rank 0 writes; a whole
+state (the port's or a JAX checkpoint) is sliced on load, so either resumes
+under any model size.  The ranks of data rank 0's model group run the eval
+together (its decoder needs them all), and rank 0 writes it.
+
+Rank 0 alone writes the run directory (logger file, ``config.json``,
+``githash``, TensorBoard, evals, the profiler's trace,
+``train_stats.json`` and the checkpoints, which hold every rank's random
+generators, gathered; each rank restores its data rank's on resume).  The
 ranks agree at each step whether any was asked to stop (SIGTERM or
 ``request_stop``), so all of them stop at the same step and none waits
 forever in an all-reduce.  At log steps the metrics are averaged over the
 ranks, so rank 0 logs the global batch's losses.
-
-Not ported yet: the model axis (``ROADMAP.md`` queue 1 item 7b; the CLI
-refuses ``--model-parallel`` > 1).
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from vispeech_tpu_torch.models.discriminator import MultiPeriodDiscriminator
 from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
 from vispeech_tpu_torch.ops.policy import FLOAT32, resolve_device
 from vispeech_tpu_torch.parallel import Mesh
+from vispeech_tpu_torch.parallel.sharding import shard_model_
 from vispeech_tpu_torch.text import N_SYMBOLS
 from vispeech_tpu_torch.train.step import TrainStep, learning_rate
 from vispeech_tpu_torch.utils import TrainLogger, check_git_hash, get_logger
@@ -125,13 +134,15 @@ class Trainer:
         self.train_set = FilelistDataset(cfg.data.training_files, cfg.data, data_root)
         self.val_set = FilelistDataset(cfg.data.validation_files, cfg.data, data_root)
         self.sampler = BucketSampler(self.train_set.lengths, cfg.train.batch_size,
-                                     num_replicas=self.mesh.world_size, rank=self.mesh.rank,
+                                     num_replicas=self.mesh.data_size,
+                                     rank=self.mesh.data_rank,
                                      seed=cfg.train.seed)
         self.steps_per_epoch = max(len(self.sampler), 1)
         self.phoneme_budgets = bucket_phoneme_budgets(self.train_set, self.sampler)
         logger.info("train: %d utterances, val: %d utterances, %d steps/epoch, device %s, "
-                    "rank %d of %d, buckets (T → N) %s", len(self.train_set), len(self.val_set),
-                    self.steps_per_epoch, self.device, self.mesh.rank, self.mesh.world_size,
+                    "rank %d of %d (model axis %d), buckets (T → N) %s", len(self.train_set),
+                    len(self.val_set), self.steps_per_epoch, self.device, self.mesh.rank,
+                    self.mesh.world_size, self.mesh.model_size,
                     {self.sampler.buckets[b]: n for b, n in self.phoneme_budgets.items()})
 
         seed = cfg.train.seed
@@ -139,8 +150,9 @@ class Trainer:
         self.model_d = random_init_(MultiPeriodDiscriminator(), seed + 1)
         self.model_g.to(self.device).train()
         self.model_d.to(self.device).train()
+        self.plan = shard_model_(self.model_g, self.mesh.model_shard, require_match=True)
         self.step_fn = TrainStep(cfg, self.model_g, self.model_d, self.steps_per_epoch,
-                                 mesh=self.mesh)
+                                 mesh=self.mesh, plan=self.plan)
         self._checkpointer = AsyncCheckpointer(keep=2)
         self._stop_requested = False
         self._trace: Optional[contextlib.ExitStack] = None
@@ -165,23 +177,46 @@ class Trainer:
                              if self.device.type == "cuda" else None)}
 
     def state_dict(self, rank_rngs: Optional[list] = None) -> dict:
-        """The checkpoint: parameters and moments (replicated, so this
-        rank's are every rank's), the step, and ``rank_rngs`` (every rank's
+        """The checkpoint: parameters and moments whole (replicated across
+        the data axis, so this rank's are every rank's; with a model axis
+        gathered over the model group, a collective every rank of the group
+        calls), the step, the model size, and ``rank_rngs`` (every rank's
         ``rng_state``, default this one's alone), rank 0's also at the top
         level, where a one-process checkpoint keeps them."""
         s = self.step_fn
         rngs = rank_rngs or [self.rng_state()]
-        return {"step": s.step, "model_g": self.model_g.state_dict(),
-                "model_d": self.model_d.state_dict(), "optim_g": s.opt_g.state_dict(),
-                "optim_d": s.opt_d.state_dict(), **rngs[0], "rank_rng": rngs}
+        model_g, optim_g = self.model_g.state_dict(), s.opt_g.state_dict()
+        if self.plan is not None:
+            model_g = self.plan.whole_state(model_g)
+            optim_g = self._map_moments(optim_g, self.plan.whole)
+        return {"step": s.step, "model_g": model_g,
+                "model_d": self.model_d.state_dict(), "optim_g": optim_g,
+                "optim_d": s.opt_d.state_dict(), **rngs[0], "rank_rng": rngs,
+                "model_parallel": self.mesh.model_size}
+
+    def _map_moments(self, optim_state: dict, fn) -> dict:
+        """``optim_state`` (the generator's) with each AdamW moment ``t`` of
+        parameter ``name`` replaced by ``fn(name, t)``, in index order."""
+        names = {id(p): n for n, p in self.model_g.named_parameters()}
+        order = [names[id(p)] for g in self.step_fn.opt_g.param_groups for p in g["params"]]
+        moments = {i: {k: fn(order[i], v) if k in ("exp_avg", "exp_avg_sq") else v
+                       for k, v in st.items()}
+                   for i, st in sorted(optim_state["state"].items())}
+        return {**optim_state, "state": moments}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore a checkpoint of whole tensors (sliced under a model
+        axis); each rank takes the random states of its data rank."""
         s = self.step_fn
-        self.model_g.load_state_dict(state["model_g"])
+        model_g, optim_g = state["model_g"], state["optim_g"]
+        if self.plan is not None:
+            model_g = self.plan.own_state(model_g)
+            optim_g = self._map_moments(optim_g, self.plan.own)
+        self.model_g.load_state_dict(model_g)
         self.model_d.load_state_dict(state["model_d"])
-        s.opt_g.load_state_dict(state["optim_g"])
+        s.opt_g.load_state_dict(optim_g)
         s.opt_d.load_state_dict(state["optim_d"])
-        rng = rank_rng(state, self.mesh.rank)
+        rng = rank_rng(state, self.mesh.data_rank)
         if rng is None:   # saved by fewer ranks: this one keeps its fresh streams
             logger.warning("rank %d: the checkpoint holds no random state for it",
                            self.mesh.rank)
@@ -205,7 +240,8 @@ class Trainer:
 
         step = jax_weights.load_jax_checkpoint(self.save_dir, self.model_g, self.model_d,
                                                self.step_fn.opt_g, self.step_fn.opt_d,
-                                               len(self.cfg.model.resblock_kernel_sizes))
+                                               len(self.cfg.model.resblock_kernel_sizes),
+                                               self.plan)
         if step is not None:
             self.step_fn.step = step
             logger.info("continued the JAX checkpoint at step %d", step)
@@ -216,10 +252,18 @@ class Trainer:
         self._stop_requested = True
 
     def _save(self, step: int) -> None:
-        """Every rank: gather the random states; rank 0: write."""
+        """Every rank: check that its model group's replicated parameters
+        are equal, gather the random states and the model axis's slices;
+        rank 0: write."""
+        if self.plan is not None:
+            self.mesh.check_replicas({
+                **{f"model_g.{k}": p for k, p in self.model_g.named_parameters()
+                   if k not in self.plan.dims},
+                **{f"model_d.{k}": p for k, p in self.model_d.named_parameters()}})
         rngs = self.mesh.gather(self.rng_state())
+        state = self.state_dict(rngs)
         if self.main:
-            self._checkpointer.save(self.save_dir, self.state_dict(rngs), step)
+            self._checkpointer.save(self.save_dir, state, step)
 
     def train(self, max_steps: Optional[int] = None,
               profile_steps: Optional[Tuple[int, int]] = None) -> None:
@@ -322,7 +366,7 @@ class Trainer:
                             m["loss/d/total"], m["loss/g/mel"], m["loss/g/kl"], m["lr"],
                             m["steps_per_sec"])
                 if step % cfg.train.eval_interval == 0:
-                    if self.main:
+                    if self.mesh.data_rank == 0:   # rank 0's model group
                         self.evaluate(step)
                     self._save(step)
         self._save(self.global_step)
@@ -333,11 +377,15 @@ class Trainer:
         and log to ``tb_eval``: the generated and ground-truth audio, and
         where the writer records images (tensorboardX) and matplotlib can
         be imported, the ground-truth and generated mels and the F0 plot.
-        → ``synthesize_utterance``'s dict, None without a validation set."""
+        → ``synthesize_utterance``'s dict, None without a validation set.
+        With a model axis every rank of the model group calls it; rank 0
+        alone logs."""
         if len(self.val_set) == 0:
             return None
         d = self.cfg.data
         out = synthesize_utterance(self.model_g, self.val_set, 0, t_frames, seed=step)
+        if not self.main:
+            return out
         raw = out["batch"]
         if self.tb_eval.records_media:
             try:

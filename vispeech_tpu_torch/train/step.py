@@ -43,9 +43,21 @@ every replica takes the global batch's step.  The losses that divide by a
 masked count (``l_length`` by the phonemes, ``kl`` by the frames) are
 rescaled by ``world · local count / global count``, so that the average is
 the global batch's ratio; the others are means over equal local shapes,
-whose average is already the global mean.  Rank r seeds its streams
-``seed + RANK_SEED_STRIDE · r`` (rank 0 as one process does), so the ranks
-draw distinct noise, segments and dropout masks.
+whose average is already the global mean.  Data rank r seeds its streams
+``seed + RANK_SEED_STRIDE · r`` (rank 0 as one process does), so the data
+ranks draw distinct noise, segments and dropout masks.
+
+Tensor parallelism (the mesh's model axis, ``parallel/sharding.py``): the
+ranks of a model group run the step on the same share and the same random
+streams, each holding its slice of the sharded generator parameters
+(``plan``).  After ``backward`` one all-reduce over the model group sums
+the partial gradients of the whole parameters that a column-parallel conv
+reads through its slice (its gains and bias) and averages the replicated
+ones, both networks', whose copies it so keeps bit-equal whatever the
+backward rounded; then every gradient, slice or whole, is averaged over
+the data axis (``Mesh.average_grads_``).  The generator's grad norm sums
+the slices' squares over the model group and counts each replicated
+parameter once.
 """
 
 from __future__ import annotations
@@ -60,6 +72,7 @@ from vispeech_tpu_torch.config import Config
 from vispeech_tpu_torch.dsp import mel_spectrogram, spec_to_mel, spectrogram
 from vispeech_tpu_torch.ops.masking import grad_global_norm, length_mask, slice_segments
 from vispeech_tpu_torch.parallel import Mesh
+from vispeech_tpu_torch.parallel.sharding import ShardPlan
 from vispeech_tpu_torch.train import losses as L
 
 # stage (``Synthesizer.bf16_stages``) → the generator's top-level modules
@@ -168,11 +181,13 @@ class TrainStep:
     ``spec`` None and ``wav`` int16 under device DSP).  ``generator`` (on
     that device) draws the posterior noise and segment starts,
     ``seed_generator`` (CPU) the attention dropout seeds.  ``mesh`` (None:
-    one process) is the data axis this rank's share of the batch is on."""
+    one process) is the data axis this rank's share of the batch is on,
+    ``plan`` (``shard_model_``'s; None: no model axis) the generator's
+    sharded parameters."""
 
     def __init__(self, cfg: Config, model_g: nn.Module, model_d: nn.Module,
                  steps_per_epoch: int = 1000, tf32: Optional[bool] = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, plan: Optional[ShardPlan] = None):
         self.cfg = cfg
         self.model_g, self.model_d = model_g, model_d
         self.mesh = mesh or Mesh()
@@ -187,6 +202,7 @@ class TrainStep:
         # (the scale discriminator's 256-group conv on segments under 512
         # samples): NaN at random.  The CPU's native kernels have no such fault.
         self.native_cpu_convs = device.type == "cpu" and self.d_dtype == torch.bfloat16
+        self.plan = plan
         self.opt_g = make_optimizer(cfg, model_g, g_freeze_keys(cfg))
         self.opt_d = make_optimizer(cfg, model_d)
         seed = self.mesh.seed(cfg.train.seed)
@@ -251,7 +267,7 @@ class TrainStep:
         counts = torch.stack([length_mask(batch["phoneme_lengths"],
                                           batch["phonemes"].shape[1]).sum(),
                               y_mask.detach().float().sum()])
-        ratio_scale = self.mesh.world_size * counts / self.mesh.sum(counts)
+        ratio_scale = self.mesh.data_size * counts / self.mesh.sum(counts)
 
         logits_r, logits_g, _, _ = self.discriminate(wav_slice, y_hat.detach())
         loss_d, _, _ = L.discriminator_loss(logits_r, logits_g)
@@ -286,10 +302,28 @@ class TrainStep:
         total = sum(metrics.values())
         self.opt_g.zero_grad(set_to_none=True)
         total.backward()
-        self.mesh.average_grads_(list(self.model_g.parameters()))
-        grad_norm_g = grad_global_norm(p.grad for p in self.model_g.parameters())
+        params = dict(self.model_g.named_parameters())
+        plan = self.plan
+        self.mesh.average_grads_(list(params.values()),
+                                 [params[k] for k in plan.dims] if plan else (),
+                                 [params[k] for k in plan.partial] if plan else ())
+        grad_norm_g = self.grad_norm_g()
         self.opt_g.step()
         self.step += 1
         metrics.update({"loss/g/total": total.detach(), "loss/d/total": loss_d.detach(),
                         "grad_norm_d": grad_norm_d, "grad_norm_g": grad_norm_g})
         return {k: v.detach() for k, v in metrics.items()}
+
+    def grad_norm_g(self) -> torch.Tensor:
+        """The generator's global grad norm: with a model axis, the slices'
+        squares summed over the model group, each replicated parameter
+        counted once."""
+        if self.plan is None:
+            return grad_global_norm(p.grad for p in self.model_g.parameters())
+        zero = torch.zeros((), device=self.generator.device)
+        sq = {True: [zero], False: [zero]}
+        for name, p in self.model_g.named_parameters():
+            if p.grad is not None:
+                sq[name in self.plan.dims].append(p.grad.float().square().sum())
+        sharded = self.plan.shard.all_reduce(torch.stack(sq[True]).sum())
+        return torch.sqrt(sharded + torch.stack(sq[False]).sum())

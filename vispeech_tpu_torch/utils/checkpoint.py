@@ -5,7 +5,8 @@ own format).
 optimizers, the step and the random generators' states, in one file: every
 rank's under ``rank_rng`` (a list in rank order), rank 0's also at the top
 level, where a checkpoint of one process without that list keeps them
-(``rank_rng`` reads both).
+(``rank_rng`` reads both).  Tensors are whole whatever model axis saved
+them; ``model_parallel`` is its size.
 ``AsyncCheckpointer.save`` copies the state to host memory on the calling
 thread (so the step loop may change the tensors at once), then writes,
 renames atomically and prunes to the newest ``keep`` on a background
@@ -86,10 +87,13 @@ def load_checkpoint(base_dir: str, step: Optional[int] = None) -> Optional[Dict]
 RNG_KEYS = ("generator", "seed_generator", "torch_rng", "cuda_rng")
 
 
-def rank_rng(state: Dict, rank: int) -> Optional[Dict]:
-    """Rank ``rank``'s random states in checkpoint ``state``, or None when
-    fewer ranks saved it."""
+def rank_rng(state: Dict, data_rank: int) -> Optional[Dict]:
+    """The random states of data rank ``data_rank`` in checkpoint
+    ``state``: those of the first rank of its model group (the group's
+    ranks draw the same streams; ``model_parallel`` is the model size that
+    saved it, 1 when absent), or None when fewer ranks saved it."""
     rngs = state.get("rank_rng") or [{k: state.get(k) for k in RNG_KEYS}]
+    rank = data_rank * state.get("model_parallel", 1)
     return rngs[rank] if rank < len(rngs) else None
 
 

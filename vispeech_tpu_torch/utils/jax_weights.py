@@ -132,9 +132,13 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray], n_resblock_kernels: int =
     return out
 
 
-def _fitted(model: nn.Module, flat, n_resblock_kernels, discriminator, what="state_dict"):
-    """The converted tree, after checking it fills ``model`` exactly."""
+def _fitted(model: nn.Module, flat, n_resblock_kernels, discriminator, what="state_dict",
+            plan=None):
+    """The converted tree, after checking it fills ``model`` exactly (cut
+    to this rank's slices by ``plan``, a ``parallel.sharding.ShardPlan``)."""
     sd = flax_to_state_dict(flat, n_resblock_kernels, discriminator)
+    if plan is not None:
+        sd = plan.own_state(sd)
     own = dict(model.named_parameters()) if what == "parameters" else model.state_dict()
     extra = sorted(set(sd) - set(own))
     missing = sorted(set(own) - set(sd))
@@ -148,10 +152,13 @@ def _fitted(model: nn.Module, flat, n_resblock_kernels, discriminator, what="sta
 
 
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
-                     n_resblock_kernels: int = 3, discriminator: bool = False) -> nn.Module:
-    """Copy a flat flax tree into ``model``; raises on any leaf left over,
-    any port parameter left empty and any shape mismatch."""
-    model.load_state_dict(_fitted(model, flat, n_resblock_kernels, discriminator))
+                     n_resblock_kernels: int = 3, discriminator: bool = False,
+                     plan=None) -> nn.Module:
+    """Copy a flat flax tree into ``model`` (a sharded one's slices with its
+    ``plan``); raises on any leaf left over, any port parameter left empty
+    and any shape mismatch."""
+    model.load_state_dict(_fitted(model, flat, n_resblock_kernels, discriminator,
+                                  plan=plan))
     return model
 
 
@@ -161,11 +168,12 @@ _MOMENT_RE = re.compile(r"^opt_state_([gd])/((?:\d+/)*)(mu|nu)/(.+)$")
 
 def load_jax_checkpoint(base_dir: str, model_g: nn.Module, model_d: nn.Module,
                         opt_g: torch.optim.Optimizer, opt_d: torch.optim.Optimizer,
-                        n_resblock_kernels: int = 3) -> Optional[int]:
+                        n_resblock_kernels: int = 3, plan_g=None) -> Optional[int]:
     """Continue the JAX package's newest ``ckpt_*.npz`` in ``base_dir``:
     both networks' parameters and both AdamW optimizers' moments and step
     counts (the key paths ``vispeech_tpu/utils/checkpoint.py:61``
-    ``flatten_state`` writes).  → its step, or None when there is none.
+    ``flatten_state`` writes); a generator sharded on the model axis takes
+    its slices (``plan_g``, its ``ShardPlan``).  → its step, or None when there is none.
     Raises on any array left over or any parameter or moment left empty."""
     steps = sorted(int(m.group(1)) for m in map(_NPZ_RE.match, os.listdir(base_dir)) if m) \
         if os.path.isdir(base_dir) else []
@@ -192,13 +200,13 @@ def load_jax_checkpoint(base_dir: str, model_g: nn.Module, model_d: nn.Module,
                       and not re.match(r"^opt_state_[gd]/(\d+/)*count$", k))
     if leftover:
         raise ValueError(f"JAX checkpoint arrays the port does not map: {leftover[:8]}")
-    for net, model, opt in (("g", model_g, opt_g), ("d", model_d, opt_d)):
+    for net, model, opt, plan in (("g", model_g, opt_g, plan_g), ("d", model_d, opt_d, None)):
         disc = net == "d"
-        load_flax_params(model, params[net], n_resblock_kernels, disc)
+        load_flax_params(model, params[net], n_resblock_kernels, disc, plan)
         if net not in counts:
             raise ValueError(f"JAX checkpoint has no AdamW moments for params_{net}")
-        mu = _fitted(model, moments[(net, "mu")], n_resblock_kernels, disc, "parameters")
-        nu = _fitted(model, moments[(net, "nu")], n_resblock_kernels, disc, "parameters")
+        mu = _fitted(model, moments[(net, "mu")], n_resblock_kernels, disc, "parameters", plan)
+        nu = _fitted(model, moments[(net, "nu")], n_resblock_kernels, disc, "parameters", plan)
         count = float(stored[counts[net]])
         for name, p in model.named_parameters():
             opt.state[p] = {"step": torch.tensor(count),
