@@ -140,10 +140,20 @@ and check them.
    weights; the bytes a rank sends in a step, counted at the collectives,
    with their NVLink bound; rank 0's profiled step; then ``torchrun
    --nproc_per_node 1 ... --model-parallel 1`` through the CLI.
+4h. Inference across devices (also alone as ``--cp``; ``cp_phase``): a
+   world of two processes on the one card over gloo, full width: gloo's
+   verdict on CUDA tensors handed to its send/recv as they are; ring
+   attention (P = 2) at the FramePriorNet's shapes against kernel A; the
+   overlap-save vocoder (P = 2) in bf16 and f32 against one process's
+   whole decode, C and D on each rank; the two-stage pipeline at M = 2 and
+   4 against one process's ``infer``, A on rank 0 and B, C, D on rank 1;
+   the bytes each rank sends and each call's wall time (gloo's host
+   staging); then the ring and the vocoder on a 1-rank NCCL world under
+   ``torchrun`` (``--cp-nccl``).
 5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d, 3f,
-   3e, 4c and 4g's eval on rank 0, E's and F's over phases 4, 4e and 4g's
-   rank 0), the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+   3e, 4c, 4g's eval on rank 0 and both ranks of 4h, E's and F's over
+   phases 4, 4e and 4g's rank 0), the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, when there is no GPU, when the port's
 package is not beside this file, or when any phase fails.
@@ -169,8 +179,10 @@ last.
     python3 chip_smoke.py --ddp
     python3 chip_smoke.py --fold
     python3 chip_smoke.py --tp
+    python3 chip_smoke.py --cp
 
-run phase 4e, 4f or 4g alone and print its record as one JSON line last.
+run phase 4e, 4f, 4g or 4h alone and print its record as one JSON line
+last.
 
     python3 chip_smoke.py --e-bwd
 
@@ -2965,6 +2977,646 @@ def tp_phase(torch, cfg, root, record, device=None):
     return counts
 
 
+CP_TIMEOUT = 600        # phase 4h: seconds its two ranks may take
+CP_PROBE_TIMEOUT = 60   # phase 4h: seconds a pair of probe processes may take
+CP_PROBE_OPS = ("send/recv", "isend/irecv", "batch_isend_irecv")
+# phase 4h's ring: the FramePriorNet's attention (hidden 192 in 2 heads of
+# 96, window 4) at the 1400-frame bucket, items of 1400 and 1100 frames
+CP_RING = {"B": 2, "H": 2, "T": 1400, "d": 96, "w": 4, "lengths": (1400, 1100)}
+CP_RING_TOL = 1e-5      # f32, TF32 off: kernel A's bound against its plain version at T = 1400
+CP_HALO = 32
+CP_VOC_SID = 7
+# the vocoder against one process's whole decode on all but the outermost hop
+# samples at each end, of the whole decode's peak: bf16 rounds the
+# shards' and the whole's convs apart; f32 sees the halo's far reach
+CP_VOC_TOL = {"bfloat16": 2 ** -5, "float32": 1e-3}
+# within a halo of the shards' seam the f32 halo is exact up to rounding
+CP_SEAM_TOL = {"float32": 1e-4}
+CP_PIPE_M = (2, 4)
+CP_SPEAKERS = (3, 17, 42, 99)   # the pipeline's 4 requests
+CP_PIPE_TOL = 2 ** -5   # the pipeline against infer: bf16 decode, of the peak
+CP_REPS = 3             # phase 4h: timed calls after the counted one
+PIPE_PER_MB = {"rel_attention": 14, "wn_stack": 4, "mrf_stage": 1, "mrf_stage_folded": 1}
+
+
+def _p2p_probe_rank(rank, port, op, root):
+    """One of a pair of processes on ``cuda:0`` over gloo: ``op`` on a CUDA
+    tensor handed to gloo as it is (the port stages it through the host).
+    → ``root/probe_{op}_{rank}.json``: "bits equal", "wrong bits" or the
+    error.  A crash leaves no file."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=20))
+    n, peer = 1 << 16, 1 - rank
+    mine = torch.randn(n, generator=torch.Generator().manual_seed(rank)).cuda()
+    want = torch.randn(n, generator=torch.Generator().manual_seed(peer))
+    got = torch.zeros(n, device="cuda")
+    try:
+        if op == "send/recv":
+            for call, t in ((dist.send, mine), (dist.recv, got))[::1 if rank == 0 else -1]:
+                call(t, peer)
+        elif op == "isend/irecv":
+            for work in (dist.isend(mine, peer), dist.irecv(got, peer)):
+                work.wait()
+        else:
+            for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, mine, peer),
+                                                dist.P2POp(dist.irecv, got, peer)]):
+                work.wait()
+        verdict = "bits equal" if torch.equal(got.cpu(), want) else "wrong bits"
+    except Exception as e:   # the verdict: what gloo does with a device pointer
+        verdict = f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:120]}"
+    with open(os.path.join(root, f"probe_{op.replace('/', '_')}_{rank}.json"), "w") as f:
+        json.dump(verdict, f)
+    os._exit(0)   # no teardown: a failed gloo pair may hang in it
+
+
+def p2p_probe(root):
+    """gloo's point-to-point calls on CUDA tensors, each op in a pair of
+    processes of its own, all started at once.  → ``verdicts()``, which
+    waits for them: {op: [rank 0's verdict, rank 1's]}, "crashed (exit code
+    n)" for a rank that left no verdict."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    pairs = {}
+    for op in CP_PROBE_OPS:
+        port = _free_port()
+        pairs[op] = [ctx.Process(target=_p2p_probe_rank, args=(r, port, op, root))
+                     for r in range(2)]
+    t0 = time.perf_counter()
+    for procs in pairs.values():
+        for p in procs:
+            p.start()
+
+    def verdicts():
+        out = {}
+        for op, procs in pairs.items():
+            for p in procs:
+                p.join(max(t0 + CP_PROBE_TIMEOUT - time.perf_counter(), 1.0))
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+            out[op] = []
+            for r, p in enumerate(procs):
+                path = os.path.join(root, f"probe_{op.replace('/', '_')}_{r}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        out[op].append(json.load(f))
+                else:
+                    out[op].append(f"crashed (exit code {p.exitcode})")
+        return out
+
+    return verdicts
+
+
+def _counted_sends(torch, call):
+    """``call()`` with the bytes this rank sends counted where the port
+    sends them: ``p2p.shift`` and ``p2p.isend`` (point to point),
+    ``all_gather`` ((P − 1) × its chunk) and ``broadcast`` ((P − 1) × the
+    tensor, at the source).  → (the result, {kind: [calls, bytes]})."""
+    import torch.distributed as dist
+
+    from vispeech_tpu_torch.parallel import p2p
+
+    counts = {}
+    shift, isend, gather, bcast = p2p.shift, p2p.isend, dist.all_gather, dist.broadcast
+
+    def add(kind, nbytes):
+        c = counts.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    def counted_shift(t, group, offset=1):
+        ts = (t,) if isinstance(t, torch.Tensor) else tuple(t)
+        if p2p.size(group) > 1 and offset % p2p.size(group):
+            add("shift", sum(size(x) for x in ts))
+        return shift(t, group, offset)
+
+    def counted_isend(t, group, dst, tag=0):
+        add("isend", size(t))
+        return isend(t, group, dst, tag)
+
+    def counted_gather(parts, t, *a, **k):
+        add("all_gather", (len(parts) - 1) * size(t))
+        return gather(parts, t, *a, **k)
+
+    def counted_bcast(t, src, group=None, *a, **k):
+        add("broadcast", (dist.get_world_size(group) - 1) * size(t)
+            if dist.get_rank() == src else 0)
+        return bcast(t, src, group, *a, **k)
+
+    p2p.shift, p2p.isend, dist.all_gather, dist.broadcast = (
+        counted_shift, counted_isend, counted_gather, counted_bcast)
+    try:
+        out = call()
+    finally:
+        p2p.shift, p2p.isend, dist.all_gather, dist.broadcast = shift, isend, gather, bcast
+    return out, counts
+
+
+def _cp_run(torch, on_card, call, path):
+    """Phase 4h's run of one configuration on a rank: the counted call (the
+    launch counters reset just before it, read just after; the bytes it
+    sends), its output saved to ``path``, then ``CP_REPS`` timed calls
+    (host clock, synchronized).  Every rank makes the same calls."""
+    from vispeech_tpu_torch.ops import kernels
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, sent = _counted_sends(torch, call)
+    sync()
+    first = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    torch.save(out.cpu(), path)
+    walls = []
+    for _ in range(CP_REPS):
+        sync()
+        t0 = time.perf_counter()
+        call()
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return {"launches": launches, "sent": sent, "first_ms": first, "wall_ms": walls}
+
+
+def _f32_decode(model):
+    """The vocoder in f32 on the engine's model (its frozen weights)."""
+    return lambda z, g: model.dec(z.float(), None if g is None else g.float()).float()
+
+
+def _cp_rank(rank, port, cfg, root, device):
+    """One rank of phase 4h's 2-rank world on ``cuda:0`` over gloo
+    (``device`` "cpu" for a rehearsal): the staged transport, the ring, the
+    vocoder in bf16 and f32, the pipeline at each M.  → ``root/cp{rank}.json``
+    and each output as ``root/cp_{name}_{rank}.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.parallel import (
+        context_groups,
+        make_generator_context_parallel,
+        make_mesh,
+        make_ring_attention,
+        make_synthesizer_pipeline,
+        shift,
+    )
+
+    on_card = device != "cpu"
+    mesh = make_mesh(device=device, backend="gloo", init_method=f"tcp://127.0.0.1:{port}")
+    rec = {"rank": rank, "device": str(mesh.device)}
+    try:
+        group, _ = context_groups(2)
+        dev = mesh.device
+        engine = TTSEngine(cfg, seeded_state_dict(torch, cfg), device=dev.type)
+        model = engine.model
+        inp = torch.load(os.path.join(root, "cp_inputs.pt"))
+        mine = torch.randn(4096, generator=torch.Generator().manual_seed(rank))
+        other = torch.randn(4096, generator=torch.Generator().manual_seed(1 - rank))
+        rec["staged"] = {str(dt): bool(torch.equal(
+            shift(mine.to(dev, dt), group, 1).cpu(), other.to(dt)))
+            for dt in (torch.float32, torch.bfloat16)}
+
+        def run(name, call):
+            rec[name] = _cp_run(torch, on_card, call, os.path.join(root, f"cp_{name}_{rank}.pt"))
+
+        with torch.no_grad(), engine.policy.precision():
+            ring = make_ring_attention(group, CP_RING["w"])
+            args = [t.to(dev) for t in inp["ring"]]
+            run("ring", lambda: ring(*args))
+            z = inp["voc_z"].to(dev)
+            g = model._speaker(torch.tensor([CP_VOC_SID], device=dev))
+            for dtype, apply in (("bfloat16", model._decode), ("float32", _f32_decode(model))):
+                voc = make_generator_context_parallel(apply, group, cfg.data.hop_length, CP_HALO)
+                run(f"vocoder_{dtype}", lambda: voc(z, g))
+            ph, lens, sid, eps = (t.to(dev) for t in inp["pipe"])
+            for M in CP_PIPE_M:
+                pipe = make_synthesizer_pipeline(model, group, inp["bucket"], M)
+                run(f"pipeline_{M}", lambda: pipe(ph, lens, sid, eps))
+    finally:
+        mesh.close()
+    with open(os.path.join(root, f"cp{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _cp_inputs(torch, cfg, engine, dev):
+    """Phase 4h's inputs, on the host: the ring's q, k, v, tables and key
+    mask; the vocoder's latent [1, 1400, inter]; the pipeline's 4 requests
+    (phase 3's batch texts with speakers ``CP_SPEAKERS`` in turn: the
+    longest that fit the bucket of their largest plan, padded to one
+    phoneme length), their speakers and prior noise."""
+    import numpy as np
+
+    from vispeech_tpu_torch.infer.batching import DEFAULT_TIERS, plan_batches
+    from vispeech_tpu_torch.text import cleaned_text_to_sequence
+
+    gen = torch.Generator().manual_seed(SEED)
+    B, H, T, d, w = (CP_RING[k] for k in "BHTdw")
+    qkv = [torch.randn(B, H, T, d, generator=gen) for _ in range(3)]
+    tables = [torch.randn(2 * w + 1, d, generator=gen) * d ** -0.5 for _ in range(2)]
+    mask = (torch.arange(T)[None, :] < torch.tensor(CP_RING["lengths"])[:, None]).float()
+    inter = cfg.model.inter_channels
+    voc_z = torch.randn(1, T, inter, generator=gen)
+
+    _, batch_texts = serving_requests(torch, cfg)
+    ids = [cleaned_text_to_sequence(engine.phonemes(t)) for t in batch_texts]
+    sids = [CP_SPEAKERS[i % len(CP_SPEAKERS)] for i in range(len(ids))]
+    ph = torch.zeros(len(ids), engine._n_pad(max(len(i) for i in ids)), dtype=torch.long)
+    for r, i in enumerate(ids):
+        ph[r, :len(i)] = torch.tensor(i)
+    lens = torch.tensor([len(i) for i in ids])
+    with engine.policy.precision():
+        pred = engine._predicted_durations(ph.numpy(), lens.tolist(), sids)
+    # the frames each request fills, as synthesize_batch reckons them
+    totals = [max(int(np.ceil(np.maximum(p[:n], 0.0)).sum()), 1)
+              for p, n in zip(pred, lens.tolist())]
+    plan = max(plan_batches(totals, tiers=DEFAULT_TIERS),
+               key=lambda p: (p.tier > 1, p.tier * p.bucket))
+    fits = sorted(sorted((i for i, t in enumerate(totals) if t <= plan.bucket),
+                         key=lambda i: -totals[i])[:len(CP_SPEAKERS)])
+    n = engine._n_pad(max(len(ids[i]) for i in fits))
+    eps = torch.randn(len(fits), plan.bucket, inter, generator=gen)
+    pipe = (ph[fits, :n], lens[fits], torch.tensor([sids[i] for i in fits]), eps)
+    return {"ring": qkv + tables + [mask], "voc_z": voc_z, "pipe": pipe,
+            "bucket": plan.bucket, "plan": (plan.tier, plan.bucket),
+            "frames": [totals[i] for i in fits]}
+
+
+def _ends(got, want, hop, tol):
+    """(the largest difference on all but the outermost ``hop`` samples at
+    each end, samples beyond ``tol`` at the start and at the end, their
+    reach from each end) for audio [1, S, 1]."""
+    d = (got - want).abs()[0, :, 0]
+    bad = (d > tol).nonzero().flatten().tolist()
+    half = d.numel() // 2
+    left = [i for i in bad if i < half]
+    right = [d.numel() - i for i in bad if i >= half]
+    return (float(d[hop:-hop].max()), len(left), len(right), max(left, default=-1) + 1,
+            max(right, default=0))
+
+
+def cp_phase(torch, cfg, root, record, device=None):
+    """Phase 4h (also alone as ``--cp``): inference across devices on one
+    card.  NCCL refuses two ranks on one device, so a world of two
+    processes on ``cuda:0`` runs over gloo, whose point-to-point calls the
+    port stages through the host (``device`` "cpu" rehearses it on the
+    host: no probe, no launches, no NCCL run).  Prints gloo's verdict on
+    CUDA tensors handed to its send/recv as they are (``p2p_probe``), then:
+
+    - ring attention (P = 2) at the FramePriorNet's shapes (``CP_RING``), f32
+      with TF32 off, against kernel A on the whole sequence and A's plain
+      version, on valid rows (A masks keys only); its wall ms beside A's;
+    - the overlap-save vocoder (P = 2, halo 32): the engine's full
+      generator in its decode dtype (bf16) and in f32 on z [1, 1400, 192]
+      with a speaker: C 1 and D 1 on each rank; against one process's whole
+      decode on all but the outermost hop samples at each end
+      (``CP_VOC_TOL``), and how many end samples differ (halo against
+      padding);
+    - the pipeline: the engine's Synthesizer on 4 requests at the bucket of
+      phase 3's largest batched plan, seeded ``eps``, M = 2 and 4: rank 0
+      launches A 14 a microbatch, rank 1 B 4, C 1 and D 1; against one
+      process's ``infer`` microbatch by microbatch (expected bit-equal) and
+      on the whole batch (``CP_PIPE_TOL``);
+    - the bytes each rank sends (counted where the port sends them) and
+      each call's wall ms: gloo's host staging, not NVLink: correctness and
+      transport, not scaling;
+    - beside the probe and the ranks, ``torchrun --nproc_per_node 1`` of
+      this script's ``--cp-nccl``: the ring and the f32 vocoder on a 1-rank
+      NCCL group against the whole, and the NCCL route's refusal of a CPU
+      tensor; kernel A's and its plain version's times after it all, alone
+      on the card.
+
+    → both ranks' launches, summed."""
+    import torch.multiprocessing as mp
+
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.ops.kernels import rel_attention
+
+    on_card = device != "cpu"
+    device = device or "cuda"
+    t_phase = time.perf_counter()
+    # the probe's processes and the NCCL run overlap the untimed set-up
+    verdicts = p2p_probe(root) if on_card else None
+    engine = TTSEngine(cfg, seeded_state_dict(torch, cfg), device=device)
+    model, dev = engine.model, engine.device
+    inp = _cp_inputs(torch, cfg, engine, dev)
+    torch.save(inp, os.path.join(root, "cp_inputs.pt"))
+    hop = cfg.data.hop_length
+    nccl = None
+    if on_card:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        env["PYTHONPATH"] = ROOT
+        nccl = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", os.path.join(ROOT, "chip_smoke.py"), "--cp-nccl", root],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        probe = verdicts()
+        print(f"cp: gloo point-to-point on CUDA tensors as they are (each op in a pair of "
+              f"processes on cuda:0; rank 0's verdict, rank 1's): {probe}")
+        record["probe"] = probe
+
+    codes = None
+    try:
+        # one process's references (not counted: the counters are the ranks')
+        refs = {}
+        with torch.no_grad(), engine.policy.precision():
+            q, k, v, rel_k, rel_v, mask = (t.to(dev) for t in inp["ring"])
+            a_args = (q, k, v, rel_k[None], rel_v[None], mask, CP_RING["w"])
+            refs["A"] = rel_attention.relative_self_attention(*a_args).cpu()
+            refs["A plain"] = rel_attention.relative_self_attention_plain(*a_args).cpu()
+            z = inp["voc_z"].to(dev)
+            g = model._speaker(torch.tensor([CP_VOC_SID], device=dev))
+            refs["vocoder_bfloat16"] = model._decode(z, g).cpu()
+            refs["vocoder_float32"] = _f32_decode(model)(z, g).cpu()
+            # what a wrong halo would move: the sign of the last frame of
+            # rank 0's shard (rank 1's left halo)
+            flipped = z.clone()
+            flipped[:, z.shape[1] // 2 - 1] *= -1
+            refs["seam moves"] = float(
+                (_f32_decode(model)(flipped, g).cpu() - refs["vocoder_float32"]).abs().max())
+            ph, lens, sid, eps = (t.to(dev) for t in inp["pipe"])
+            T = inp["bucket"]
+            for M in CP_PIPE_M:
+                n = ph.shape[0] // M
+                refs[f"pipeline_{M}"] = torch.cat([
+                    model.infer(ph[i:i + n], lens[i:i + n], T, sid=sid[i:i + n],
+                                noise_scale=0.667, eps=eps[i:i + n])[0].cpu()
+                    for i in range(0, ph.shape[0], n)])
+            refs["whole batch"] = model.infer(ph, lens, T, sid=sid, noise_scale=0.667,
+                                              eps=eps)[0].cpu()
+        del engine, model
+        if on_card:
+            torch.cuda.empty_cache()
+
+        ctx = mp.get_context("spawn")
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_cp_rank, args=(r, port, cfg, root, device)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(t0 + CP_TIMEOUT - time.perf_counter(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        codes = [p.exitcode for p in procs]
+        print(f"cp: two ranks on {device} over gloo: exit codes {codes} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        if nccl is not None and nccl.poll() is None:
+            nccl.kill()
+        raise
+    finally:
+        # the probe's processes and the NCCL run, waited for (killed after a
+        # failure)
+        if verdicts is not None and "probe" not in record:
+            verdicts()
+        stdout = stderr = ""
+        if nccl is not None:
+            try:
+                stdout, stderr = nccl.communicate(timeout=CLI_TIMEOUT)
+            finally:
+                if nccl.poll() is None:
+                    nccl.kill()
+                    nccl.communicate()
+    if codes != [0, 0]:
+        raise AssertionError(f"phase 4h's ranks exited {codes} (None: hung)")
+    fails = []
+    if nccl is not None:
+        print("\n".join(ln for ln in stdout.splitlines() if ln.startswith("cp-nccl:")))
+        print(f"cp: torchrun --nproc_per_node 1 chip_smoke.py --cp-nccl (beside the probe and "
+              f"the two ranks): exit {nccl.returncode}")
+        if nccl.returncode != 0:
+            print(stderr[-4000:])
+            fails.append("the 1-rank NCCL run")
+        # kernel A alone, with nothing else on the card
+        with torch.no_grad():
+            refs["A ms"] = time_ms(lambda: rel_attention.relative_self_attention(*a_args), 20)
+            refs["A plain ms"] = time_ms(
+                lambda: rel_attention.relative_self_attention_plain(*a_args), 5)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"cp{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    def out(name, r):
+        return torch.load(os.path.join(root, f"cp_{name}_{r}.pt"))
+
+    staged = [rk["staged"] for rk in ranks]
+    print(f"cp: p2p.shift through the host (gloo, CUDA tensors), the bits the other rank "
+          f"sent: {staged}")
+    if not all(all(s.values()) for s in staged):
+        fails.append("staged transport")
+    for name in ("ring", "vocoder_bfloat16", "vocoder_float32",
+                 *(f"pipeline_{M}" for M in CP_PIPE_M)):
+        if not torch.equal(out(name, 0), out(name, 1)):
+            fails.append(f"{name}: the ranks' outputs differ")
+
+    def walls(name):
+        return (f"first {ranks[0][name]['first_ms']:.2f} ms, then "
+                f"{[round(x, 2) for x in ranks[0][name]['wall_ms']]} (rank 0)")
+
+    def sent(name):
+        return ", ".join(f"{k} {n} calls {b / 2 ** 20:.3f} MiB"
+                         for k, (n, b) in sorted(ranks[0][name]["sent"].items()))
+
+    card = card_line() if on_card else "host CPU"
+    # ring attention against kernel A, valid rows
+    ring = out("ring", 0)
+    errs = {}
+    for ref in ("A", "A plain"):
+        errs[ref] = max(float((ring[b, :, :L] - refs[ref][b, :, :L]).abs().max())
+                        for b, L in enumerate(CP_RING["lengths"]))
+    ok = all(e <= CP_RING_TOL for e in errs.values())
+    print(f"cp: ring attention, P = 2, [B, H, T, d] = {[CP_RING[k] for k in 'BHTd']}, key "
+          f"lengths {list(CP_RING['lengths'])}, f32 (TF32 off), against kernel A on the whole "
+          f"sequence {errs['A']:.3e}, its plain version {errs['A plain']:.3e} on valid rows "
+          f"(bound {CP_RING_TOL:.0e}) {'ok' if ok else 'FAIL'}; wall {walls('ring')}; kernel "
+          f"A alone {refs.get('A ms', float('nan')):.4f} ms, its plain version "
+          f"{refs.get('A plain ms', float('nan')):.4f} ms; sends {sent('ring')} (gloo's host "
+          f"staging, not NVLink); {card}")
+    if not ok:
+        fails.append("ring")
+    record["ring"] = {"err": errs, "rank0": ranks[0]["ring"], "A_ms": refs.get("A ms"),
+                      "A_plain_ms": refs.get("A plain ms")}
+
+    for dtype, tol in CP_VOC_TOL.items():
+        name = f"vocoder_{dtype}"
+        got, want = out(name, 0), refs[name]
+        peak = float(want.abs().max())
+        inner, n_left, n_right, reach_l, reach_r = _ends(got, want, hop, tol * peak)
+        # the samples within a halo of the shards' seam, where a wrong halo shows
+        mid = got.shape[1] // 2
+        seam = float((got - want)[:, mid - CP_HALO * hop:mid + CP_HALO * hop].abs().max())
+        seam_tol = CP_SEAM_TOL.get(dtype, tol)
+        ok = got.shape == want.shape and inner <= tol * peak and seam <= seam_tol * peak
+        print(f"cp: overlap-save vocoder, P = 2, halo {CP_HALO}, {dtype}, z {list(z.shape)}: "
+              f"{got.shape[1]} samples against one process's whole decode: on all but the "
+              f"outermost {hop} samples at each end {inner:.3e} ({inner / peak:.3e} of the peak "
+              f"{peak:.3e}, bound {tol:.3g}), within a halo of the seam {seam:.3e} ("
+              f"{seam / peak:.3e}, bound {seam_tol:.3g}) {'ok' if ok else 'FAIL'}; samples "
+              f"beyond the bound {n_left} at the start (reaching {reach_l}) and {n_right} at "
+              f"the end (reaching {reach_r}); wall {walls(name)}; sends {sent(name)}")
+        if not ok:
+            fails.append(name)
+        record[name] = {"inner": inner, "seam": seam, "peak": peak, "ends": [n_left, n_right],
+                        "reach": [reach_l, reach_r], "rank0": ranks[0][name]}
+    # the f32 seam check sees a wrong halo only if a halo frame moves the audio
+    peak = record["vocoder_float32"]["peak"]
+    moves = refs["seam moves"]
+    ok = moves >= 10 * CP_SEAM_TOL["float32"] * peak
+    print(f"cp: one latent frame's sign at the seam moves the whole f32 decode by {moves:.3e} "
+          f"({moves / peak:.3e} of the peak, {moves / (CP_SEAM_TOL['float32'] * peak):.1f} x "
+          f"the seam's bound; at least 10 x) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append("the seam check cannot see a wrong halo")
+    record["seam_moves"] = moves
+
+    for M in CP_PIPE_M:
+        name = f"pipeline_{M}"
+        got = out(name, 0)
+        per_mb, whole = refs[name], refs["whole batch"]
+        peak = float(whole.abs().max())
+        d_mb = float((got - per_mb).abs().max()) if got.shape == per_mb.shape else float("inf")
+        d_whole = float((got - whole).abs().max()) if got.shape == whole.shape else float("inf")
+        ok = d_mb <= CP_PIPE_TOL * peak and d_whole <= CP_PIPE_TOL * peak
+        print(f"cp: pipeline, 2 stages, M = {M}, {got.shape[0]} requests of "
+              f"{inp['frames']} frames at bucket {inp['bucket']} (phase 3's largest plan "
+              f"{inp['plan']}): against one process's infer microbatch by microbatch "
+              f"{'bit-equal' if d_mb == 0 else f'{d_mb:.3e} apart (not bit-equal)'}, against "
+              f"one whole-batch infer {d_whole:.3e} ({d_whole / peak:.3e} of the peak; bound "
+              f"{CP_PIPE_TOL:.3g} of it) {'ok' if ok else 'FAIL'}; wall {walls(name)}; rank 0 "
+              f"sends {sent(name)}; rank 1 sends "
+              + ", ".join(f"{k} {n} calls {b / 2 ** 20:.3f} MiB"
+                          for k, (n, b) in sorted(ranks[1][name]["sent"].items())))
+        if not ok:
+            fails.append(name)
+        record[name] = {"per_mb": d_mb, "whole": d_whole, "peak": peak,
+                        "ranks": [rk[name] for rk in ranks]}
+
+    counts = {}
+    for r, rk in enumerate(ranks):
+        for name in ("ring", "vocoder_bfloat16", "vocoder_float32",
+                     *(f"pipeline_{M}" for M in CP_PIPE_M)):
+            for k, v in rk[name]["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    if on_card:
+        for r, rk in enumerate(ranks):
+            want = {}
+            for M in CP_PIPE_M:
+                for k, v in PIPE_PER_MB.items():
+                    if (k == "rel_attention") == (r == 0):
+                        want[k] = want.get(k, 0) + v * M
+            for dtype in CP_VOC_TOL:
+                for k in ("mrf_stage", "mrf_stage_folded"):
+                    want[k] = want.get(k, 0) + 1
+            got = {k: sum(rk[n]["launches"][k] for n in rk if n.startswith(("ring", "voc",
+                                                                               "pipe")))
+                   for k in PIPE_PER_MB}
+            want = {k: want.get(k, 0) for k in PIPE_PER_MB}
+            per = {n: {k: v for k, v in rk[n]["launches"].items() if v}
+                   for n in rk if n.startswith(("ring", "voc", "pipe"))}
+            print(f"cp: rank {r}'s launches {per}; A-D over the phase {got}, expected {want}")
+            if got != want:
+                fails.append(f"rank {r}'s launches")
+
+    print(f"cp: phase 4h in {time.perf_counter() - t_phase:.1f} s")
+    if fails:
+        raise AssertionError(f"phase 4h failed: {fails}")
+    record["launches"] = counts
+    return counts
+
+
+def cp_nccl(torch, root) -> int:
+    """``--cp-nccl`` under ``torchrun --nproc_per_node 1`` (phase 4h): a
+    1-rank NCCL world; the ring (P = 1) against kernel A and the f32
+    vocoder (P = 1) against the whole decode on phase 4h's inputs, both on
+    the world group (its gathers run through NCCL); ``p2p.shift`` on it
+    returns its input; a CPU tensor on it is refused.  Exit 0 when all
+    hold."""
+    import torch.distributed as dist
+
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.ops.kernels import rel_attention
+    from vispeech_tpu_torch.parallel import (
+        make_generator_context_parallel,
+        make_mesh,
+        make_ring_attention,
+        p2p,
+    )
+    from vispeech_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", "config.json"))
+    mesh = make_mesh()
+    world = dist.group.WORLD
+    ok = {}
+    try:
+        dev = mesh.device
+        print(f"cp-nccl: backend {dist.get_backend(world)}, world {dist.get_world_size()}, "
+              f"{dev}")
+        x = torch.ones(4, device=dev)
+        ok["shift returns its input"] = p2p.shift(x, world, 1) is x
+        try:
+            p2p.staged(torch.device("cpu"), world)
+            ok["a CPU tensor refused"] = False
+        except RuntimeError as e:
+            ok["a CPU tensor refused"] = "no point-to-point route" in str(e)
+        inp = torch.load(os.path.join(root, "cp_inputs.pt"))
+        engine = TTSEngine(cfg, seeded_state_dict(torch, cfg), device="cuda")
+        model = engine.model
+        with torch.no_grad(), engine.policy.precision():
+            q, k, v, rel_k, rel_v, mask = (t.to(dev) for t in inp["ring"])
+            kernels.reset_launches()
+            ring = make_ring_attention(world, CP_RING["w"])(q, k, v, rel_k, rel_v, mask)
+            ring_launches = kernels.launch_counts()["rel_attention"]
+            want = rel_attention.relative_self_attention(q, k, v, rel_k[None], rel_v[None],
+                                                         mask, CP_RING["w"])
+            err = max(float((ring[b, :, :L] - want[b, :, :L]).abs().max())
+                      for b, L in enumerate(CP_RING["lengths"]))
+            ok["ring"] = err <= CP_RING_TOL and ring_launches == 0
+            print(f"cp-nccl: ring attention, P = 1, against kernel A on valid rows {err:.3e} "
+                  f"(bound {CP_RING_TOL:.0e}), A launches in the ring {ring_launches}")
+            z = inp["voc_z"].to(dev)
+            g = model._speaker(torch.tensor([CP_VOC_SID], device=dev))
+            decode = _f32_decode(model)
+            kernels.reset_launches()
+            got = make_generator_context_parallel(decode, world, cfg.data.hop_length,
+                                                  CP_HALO)(z, g)
+            launches = {k: v for k, v in kernels.launch_counts().items() if v}
+            want = decode(z, g)
+            peak = float(want.abs().max())
+            tol = CP_VOC_TOL["float32"]
+            inner, n_left, n_right, reach_l, reach_r = _ends(got.cpu(), want.cpu(),
+                                                             cfg.data.hop_length, tol * peak)
+            ok["vocoder"] = inner <= tol * peak and launches == {"mrf_stage": 1,
+                                                                 "mrf_stage_folded": 1}
+            print(f"cp-nccl: overlap-save vocoder, P = 1, f32, against the whole decode on all "
+                  f"but the outermost {cfg.data.hop_length} samples at each end {inner:.3e} "
+                  f"({inner / peak:.3e} of the peak, bound {tol:.0e}); beyond the bound "
+                  f"{n_left} samples at the start (reaching {reach_l}), {n_right} at the end "
+                  f"(reaching {reach_r}); launches {launches}")
+    finally:
+        mesh.close()
+    print(f"cp-nccl: {ok}")
+    return 0 if all(ok.values()) else 1
+
+
 FOLD_BATCH = 12    # phase 4f: the trainer's batch (configs/config.json)
 FOLD_TOL = 1e-5    # phase 4f: f64 (weights folded in f32): each gradient within this of its peak
 FOLD_REPS = 3      # phase 4f: forward + backward calls a profiled window
@@ -3172,6 +3824,23 @@ def main() -> int:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"root": ROOT, "card": card_line(), "tp": rec}, default=str))
         return 0
+    if sys.argv[1:] == ["--cp"]:
+        _build.build_all()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        rec = {}
+        root = tempfile.mkdtemp(prefix="vispeech_cp_")
+        try:
+            cp_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), root,
+                     rec)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"root": ROOT, "card": card_line(), "cp": rec}, default=str))
+        return 0
+    if sys.argv[1:2] == ["--cp-nccl"] and len(sys.argv) == 3:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return cp_nccl(torch, sys.argv[2])
     if sys.argv[1:] == ["--fold"]:
         rec = {}
         fold_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")), rec)
@@ -3270,13 +3939,20 @@ def main() -> int:
         tp_counts = tp_phase(torch, cfg, root, {})
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="vispeech_cp_")
+    try:
+        cp_counts = cp_phase(torch, cfg, root, {})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     # A, B, C and D count the serving run, the VC run, the text phase, the
-    # HTTP phase, the trainer's evals and the model group's eval (rank 0's);
-    # E and F the training run, the 1-rank mesh's and the model axis's
-    # (rank 0's)
+    # HTTP phase, the trainer's evals, the model group's eval (rank 0's) and
+    # both ranks of phase 4h; E and F the training run, the 1-rank mesh's and
+    # the model axis's (rank 0's)
     counts = {k: v + vc_counts[k] + text_counts[k] + http_counts[k]
-              + trainer_counts.get(k, 0) + tp_counts.get(k, 0) for k, v in counts.items()}
+              + trainer_counts.get(k, 0) + tp_counts.get(k, 0) + cp_counts.get(k, 0)
+              for k, v in counts.items()}
     counts.update({k: v + ddp_counts[k] + tp_counts[k] for k, v in train_counts.items()
                    if "_train_" in k})
     kernels = [dict(name=name, route="cuda",

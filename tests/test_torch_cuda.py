@@ -712,3 +712,65 @@ def test_model_axis_layers_on_the_card(device, tmp_path):
             assert float((dx - want_dx).abs().max()) <= 1e-10, name
             for k, g in grads.items():
                 assert float((g - want_grads[k]).abs().max()) <= 1e-10, (name, k)
+
+
+def _ring_inputs(device, T=700, d=96, lengths=(700, 611)):
+    r = np.random.RandomState(3)
+    q, k, v = (r.randn(2, 2, T, d) for _ in range(3))
+    rel_k, rel_v = (r.randn(9, d) * d ** -0.5 for _ in range(2))
+    mask = (np.arange(T)[None, :] < np.array(lengths)[:, None]).astype(np.float32)
+    return _cuda(device, q, k, v, rel_k, rel_v, mask), lengths
+
+
+@pytest.mark.cuda
+def test_ring_attention_one_rank_against_kernel_a(device):
+    """The ring at P = 1 (no process group) on CUDA tensors, plain f32
+    products with TF32 off, against kernel A on valid rows."""
+    from vispeech_tpu_torch.parallel.context import make_ring_attention
+
+    (q, k, v, rel_k, rel_v, mask), lengths = _ring_inputs(device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            out = make_ring_attention(None)(q, k, v, rel_k, rel_v, mask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    before = rel_attention.launches
+    want = rel_attention.relative_self_attention(q, k, v, rel_k[None], rel_v[None], mask)
+    assert rel_attention.launches == before + 1
+    for b, n in enumerate(lengths):
+        torch.testing.assert_close(out[b, :, :n], want[b, :, :n], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_shift_on_a_one_rank_nccl_group(device):
+    """A 1-rank NCCL world: ``p2p.shift`` returns its input, a CPU tensor
+    has no route over NCCL, and the ring's gathers on the world group (through
+    NCCL) give the ring of no group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vispeech_tpu_torch.parallel import p2p
+    from vispeech_tpu_torch.parallel.context import make_ring_attention
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        world = dist.group.WORLD
+        x = torch.ones(4, device=device)
+        assert p2p.shift(x, world, 1) is x
+        assert not p2p.staged(x.device, world)
+        with pytest.raises(RuntimeError, match="no point-to-point route"):
+            p2p.staged(torch.device("cpu"), world)
+        (q, k, v, rel_k, rel_v, mask), _ = _ring_inputs(device, T=128, lengths=(128, 100))
+        with torch.no_grad():
+            got = make_ring_attention(world)(q, k, v, rel_k, rel_v, mask)
+            want = make_ring_attention(None)(q, k, v, rel_k, rel_v, mask)
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
