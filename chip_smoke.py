@@ -150,8 +150,19 @@ and check them.
    the bytes each rank sends and each call's wall time (gloo's host
    staging); then the ring and the vocoder on a 1-rank NCCL world under
    ``torchrun`` (``--cp-nccl``).
+4i. The stochastic duration predictor (also alone as ``--sdp``;
+   ``sdp_phase``): ``configs/config.json`` with ``model.use_sdp`` set true
+   in memory, ``seeded_state_dict``'s weights (the SDP biased so that a
+   phoneme lasts a few frames), f32 with TF32 off, the long request's 68
+   phonemes: the SDP's sampling and NLL on the card against the CPU with
+   injected noise; ``Synthesizer.infer`` with a scalar duration control
+   and injected noise (A 14, B 4, C 1, D 1; durations and audio against
+   the CPU's); the engine's int16 PCM with ``use_sdp`` true and false
+   (bit-equal); the Conformer, Decoder and FFT at hidden 192 over a
+   [2, 1400] batch against the CPU; the SDP's and the deterministic
+   head's wall and device busy time for one request.
 5. Prints the per-kernel JSON line (A-D's launches over phases 3, 3d, 3f,
-   3e, 4c, 4g's eval on rank 0 and both ranks of 4h, E's and F's over
+   3e, 4c, 4g's eval on rank 0, both ranks of 4h and 4i, E's and F's over
    phases 4, 4e and 4g's rank 0), the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -180,9 +191,10 @@ last.
     python3 chip_smoke.py --fold
     python3 chip_smoke.py --tp
     python3 chip_smoke.py --cp
+    python3 chip_smoke.py --sdp
 
-run phase 4e, 4f, 4g or 4h alone and print its record as one JSON line
-last.
+run phase 4e, 4f, 4g, 4h or 4i alone and print its record as one JSON
+line last.
 
     python3 chip_smoke.py --e-bwd
 
@@ -3719,10 +3731,271 @@ def fold_phase(torch, cfg, record, dev=None, batch=FOLD_BATCH):
         torch.cuda.empty_cache()
 
 
+# phase 4i's bounds, card (f32, TF32 off) against the host CPU: the SDP's
+# logw absolute (a logw of ~1.8 through three inverse splines and twelve
+# DDSConv layers: f32 summation order, ~1e-6, amplified where a bin is
+# narrow; the CPU tests hold the port to JAX at the same bound), its NLL
+# relative (a sum of ~400 terms), a duration compared only where w lies
+# farther than SDP_MARGIN from an integer (a ceil; w = 1.1·(e^logw − 1)
+# moves by ~7e-4 at logw's bound), the Conformer, Decoder and FFT outputs
+# relative to their peaks (four post-norm layers, f32)
+SDP_LOGW_TOL = 1e-4
+SDP_NLL_RTOL = 1e-4
+SDP_MARGIN = 1e-3
+OFFPATH_TOL = 1e-4
+SDP_SCALE = 1.1          # phase 4i's scalar duration control
+SDP_REPS = 5             # phase 4i: timed calls of each duration head
+
+
+def _seeded_params_(torch, module, seed):
+    """Every parameter of ``module`` from ``torch.Generator(seed)``: norm
+    scales 1 + N(0, 0.1²), running variances U(0.5, 1.5), running means
+    N(0, 0.1²), the rest U(±1/√fan_in)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in [*module.named_parameters(), *module.named_buffers()]:
+            if name.endswith("running_var"):
+                v = 0.5 + torch.rand(p.shape, generator=gen)
+            elif name.endswith("running_mean"):
+                v = 0.1 * torch.randn(p.shape, generator=gen)
+            elif name.endswith(("gamma", "norm.weight", "bn.weight")):
+                v = 1.0 + 0.1 * torch.randn(p.shape, generator=gen)
+            else:
+                fan_in = p[0].numel() if p.dim() > 1 else p.shape[-1]
+                v = (torch.rand(p.shape, generator=gen) * 2 - 1) / fan_in ** 0.5
+            p.copy_(v.to(p.device, p.dtype))
+    return module
+
+
+def _offpath_modules(torch, dev):
+    """Phase 4i (e): ``ConformerEncoder(192, 4 layers, kernel 31)``, the
+    causal ``Decoder`` and ``FFT`` at hidden 192 (filter 768, 2 heads, 4
+    layers, kernel 3) over a batch of a 1400- and an 1100-frame item (the
+    Decoder over 350- and 270-step encoder states), each on the card
+    against the CPU: → {name: row}."""
+    from vispeech_tpu_torch.models.conformer import ConformerEncoder
+    from vispeech_tpu_torch.ops.attention import FFT, Decoder
+    from vispeech_tpu_torch.ops.masking import length_mask
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(2, 1400, 192, generator=gen)
+    h = torch.randn(2, 350, 192, generator=gen)
+    x_mask = length_mask(torch.tensor([1400, 1100]), 1400)
+    h_mask = length_mask(torch.tensor([350, 270]), 350)
+    cases = {
+        "conformer": (lambda: ConformerEncoder(192, n_layers=4, conv_kernel_size=31),
+                      (x, x_mask)),
+        "decoder": (lambda: Decoder(192, 768, 2, 4, kernel_size=3), (x, x_mask, h, h_mask)),
+        "fft": (lambda: FFT(192, 768, 2, 4, kernel_size=3), (x, x_mask)),
+    }
+    rows = {}
+    for i, (name, (make, args)) in enumerate(cases.items()):
+        cpu = _seeded_params_(torch, make(), SEED + i).eval()
+        card = _seeded_params_(torch, make(), SEED + i).to(dev).eval()
+        on_card = [a.to(dev) for a in args]
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            want = cpu(*args)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            got = card(*on_card).cpu()
+            prof = {}
+            profile(torch, f"{name} [2, 1400]", lambda: card(*on_card), 4, prof)
+        peak = float(want.abs().max())
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= OFFPATH_TOL * peak
+        rows[name] = dict(max_abs_err=err, peak=peak, ok=ok, wall_ms=prof.get("wall_ms"),
+                          device_ms=prof.get("busy_ms"), cpu_ms=cpu_ms)
+        print(f"sdp (e): {name} at hidden 192, [2, 1400] frames: card vs CPU max_abs_err "
+              f"{err:.3e} of peak {peak:.3e} (tol {OFFPATH_TOL:g} of peak) "
+              f"{'ok' if ok else 'FAIL'}; wall {prof.get('wall_ms', float('nan')):.3f} ms, "
+              f"device busy {prof.get('busy_ms', float('nan')):.3f} ms a call, CPU "
+              f"{cpu_ms:.1f} ms; {card_line()}")
+        del card, on_card
+    return rows
+
+
+def sdp_phase(torch, cfg, record, dev=None):
+    """Phase 4i: the stochastic duration predictor at the full width of
+    ``cfg`` with ``model.use_sdp`` set true (in memory), the weights of
+    ``seeded_state_dict``; f32 with TF32 off, card against the host CPU.
+    (a) its sampling and (b) its NLL at the long request's phoneme count,
+    noise injected, on the same text states; (c) ``Synthesizer.infer`` with
+    a scalar duration control, noise 0.667, ``eps_w`` and ``eps`` injected:
+    its launches (A 14, B 4, C 1, D 1), durations equal where w lies beyond
+    ``SDP_MARGIN`` of an integer, audio within 1e-3 of the peak when all
+    durations agree; (d) the engine with ``use_sdp`` true and false on the
+    same weights and seeds: int16 PCM bit-equal; (e) the Conformer,
+    Decoder and FFT (``_offpath_modules``).  Prints the SDP's and the
+    deterministic head's wall and device time for one request.  → the
+    launch counts of (c) and (d)."""
+    import numpy as np
+
+    from vispeech_tpu_torch.infer.batching import pick_bucket
+    from vispeech_tpu_torch.infer.pipeline import TTSEngine
+    from vispeech_tpu_torch.models.synthesizer import Synthesizer
+    from vispeech_tpu_torch.ops import kernels
+    from vispeech_tpu_torch.ops.layers import freeze_weight_norm
+    from vispeech_tpu_torch.ops.policy import FLOAT32
+    from vispeech_tpu_torch.text import N_SYMBOLS, cleaned_text_to_sequence, text_to_phones
+
+    dev = dev or torch.device("cuda")
+    t_phase = time.perf_counter()
+    fails = []
+    sdp_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_sdp=True))
+    state = seeded_state_dict(torch, sdp_cfg)
+    models = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = Synthesizer.from_config(sdp_cfg, N_SYMBOLS, FLOAT32)
+        m.load_state_dict(state)
+        models[name] = freeze_weight_norm(m.to(device).eval())
+    card, cpu = models["card"], models["cpu"]
+    requests, _ = serving_requests(torch, cfg)
+    label, kw, _ = requests[1]
+    ids = cleaned_text_to_sequence(text_to_phones(kw["text"]))
+    N = len(ids)
+    ph, lens = torch.tensor([ids]), torch.tensor([N])
+    sid = torch.tensor([kw["speaker"]])
+    gen = torch.Generator().manual_seed(SEED)
+    eps_w = torch.randn(1, N, 2, generator=gen)
+    e_q = torch.randn(1, N, 2, generator=gen)
+
+    def on(t):
+        return t.to(dev)
+
+    # (a) and (b): both predictors on the CPU's text states
+    with torch.no_grad():
+        x, x_mask = cpu.enc_p(ph, lens)
+        g = cpu._speaker(sid)
+        logw = {"cpu": cpu.sdp(x, x_mask, g=g, reverse=True, noise_scale=0.667,
+                               noise=eps_w),
+                "card": card.sdp(on(x), on(x_mask), g=on(g), reverse=True,
+                                 noise_scale=0.667, noise=on(eps_w)).cpu()}
+        w = (torch.exp(logw["cpu"]) * x_mask - 1.0) * SDP_SCALE
+        dur = torch.clamp(torch.ceil(w), min=0.0)
+        nll = {"cpu": cpu.sdp(x, x_mask, w=dur, g=g, noise=e_q),
+               "card": card.sdp(on(x), on(x_mask), w=on(dur), g=on(g), noise=on(e_q)).cpu()}
+    err_w = float((logw["card"] - logw["cpu"]).abs().max())
+    err_nll = float(((nll["card"] - nll["cpu"]).abs() / nll["cpu"].abs()).max())
+    frames = dur[0, :, 0].tolist()
+    print(f"sdp: N = {N} phonemes ('{label}' text), speaker {int(sid)}; frames a phoneme at "
+          f"scale {SDP_SCALE}: min {min(frames):.0f}, mean {sum(frames) / N:.2f}, max "
+          f"{max(frames):.0f}, total {sum(frames):.0f}")
+    ok_a = bool(torch.isfinite(logw["card"]).all()) and err_w <= SDP_LOGW_TOL
+    ok_b = bool(torch.isfinite(nll["card"]).all()) and err_nll <= SDP_NLL_RTOL
+    print(f"sdp (a): sampling (noise 0.667, injected) card vs CPU: logw max_abs_err "
+          f"{err_w:.3e} (tol {SDP_LOGW_TOL:g}) {'ok' if ok_a else 'FAIL'}")
+    print(f"sdp (b): NLL (e_q injected) card {float(nll['card'][0]):.4f} vs CPU "
+          f"{float(nll['cpu'][0]):.4f}: relative err {err_nll:.3e} (tol {SDP_NLL_RTOL:g}) "
+          f"{'ok' if ok_b else 'FAIL'}")
+    fails += [] if ok_a else ["(a) sampling"]
+    fails += [] if ok_b else ["(b) NLL"]
+    record.update(N=N, frames=sum(frames), logw_err=err_w, nll_rel_err=err_nll)
+
+    # (c) infer through the kernels, counted
+    t_frames = pick_bucket(int(sum(frames)))
+    eps = torch.randn(1, t_frames, cfg.model.inter_channels, generator=gen)
+    args = dict(sid=sid, noise_scale=0.667, duration_control=SDP_SCALE, eps=eps, eps_w=eps_w)
+    card_args = {k: on(v) if isinstance(v, torch.Tensor) else v for k, v in args.items()}
+    card.infer(on(ph), on(lens), t_frames, **card_args)      # meets the shapes once
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out_card = card.infer(on(ph), on(lens), t_frames, **card_args)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    out_cpu = cpu.infer(ph, lens, t_frames, **args)
+    expect = {k: 0 for k in counts}
+    expect.update(rel_attention=cfg.model.n_layers + 6 + cfg.model.n_layers, wn_stack=4,
+                  mrf_stage=1, mrf_stage_folded=1)
+    print(f"sdp (c): infer with use_sdp at bucket {t_frames}: launches {counts}, expected "
+          f"{expect}")
+    if counts != expect:
+        fails.append("(c) launches")
+    d_card, d_cpu = out_card[3].cpu()[0], out_cpu[3][0]
+    clear = (w[0, :, 0] - torch.round(w[0, :, 0])).abs() > SDP_MARGIN
+    agree = bool(torch.equal(d_card, d_cpu))
+    ok_d = bool(torch.equal(d_card[clear], d_cpu[clear]))
+    print(f"sdp (c): durations card vs CPU: {int(clear.sum())} of {N} beyond {SDP_MARGIN:g} "
+          f"of an integer, equal there: {ok_d}; all equal: {agree}")
+    if not ok_d:
+        fails.append("(c) durations")
+    a_card, a_cpu = out_card[0].cpu(), out_cpu[0]
+    audio_ok = bool(torch.isfinite(a_card).all())
+    if agree:
+        err = float((a_card - a_cpu).abs().max())
+        peak = float(a_cpu.abs().max())
+        audio_ok = audio_ok and err <= 1e-3 * max(peak, 1e-3)
+        print(f"sdp (c): audio card vs CPU: {a_cpu.shape[1]} samples, max_abs_err {err:.3e}, "
+              f"peak {peak:.3e} (tol 1e-3 of peak) {'ok' if audio_ok else 'FAIL'}")
+        record.update(audio_err=err, audio_peak=peak)
+    else:
+        print("sdp (c): a duration within the margin differs: audio not compared")
+    if not audio_ok:
+        fails.append("(c) audio")
+
+    # the duration heads' time for one request, on the card
+    with torch.no_grad():
+        xc, mc, gc, nc = on(x), on(x_mask), on(g), on(eps_w)
+        heads = {"sdp": lambda: card.sdp(xc, mc, g=gc, reverse=True, noise_scale=0.667,
+                                         noise=nc),
+                 "deterministic": lambda: card.duration_predictor(xc, mc, g=gc)}
+        for name, fn in heads.items():
+            walls = []
+            for _ in range(SDP_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            # the SDP's host dispatch outruns device_ms's head start: its
+            # device time is the profiler's busy time over SDP_REPS calls
+            prof = {}
+            profile(torch, f"{name} duration head (N = {N}) x{SDP_REPS}",
+                    lambda fn=fn: [fn() for _ in range(SDP_REPS)], 6, prof)
+            wall = sorted(walls)[SDP_REPS // 2]
+            record[f"{name}_ms"] = dict(wall=wall,
+                                        device=prof.get("busy_ms", float("nan")) / SDP_REPS)
+            print(f"sdp: {name} duration head, N = {N}: wall {wall:.3f} ms (median of "
+                  f"{SDP_REPS}), device busy {record[f'{name}_ms']['device']:.4f} ms a call; "
+                  f"{card_line()}")
+    del models, card, cpu
+    torch.cuda.empty_cache()
+
+    # (d) the engine with use_sdp true and false: the same PCM
+    no_sdp = {k: v for k, v in state.items() if not k.startswith("sdp.")}
+    pcm = {}
+    kernels.reset_launches()
+    for flag, c, sd in ((True, sdp_cfg, state), (False, cfg, no_sdp)):
+        engine = TTSEngine(c, sd, device=dev.type, transfer_int16=True)
+        pcm[flag] = [engine.synthesize(**requests[0][1])["audio_int16"],
+                     engine.synthesize(text=requests[0][1]["text"], speaker=9, seed=4,
+                                       duration_control=SDP_SCALE)["audio_int16"]]
+        del engine
+    engine_counts = kernels.launch_counts()
+    same = all(np.array_equal(a, b) for a, b in zip(pcm[True], pcm[False]))
+    print(f"sdp (d): engine with use_sdp true vs false, 2 requests: int16 PCM bit-equal "
+          f"{same} ({[len(a) for a in pcm[True]]} samples); launches {engine_counts}")
+    if not same:
+        fails.append("(d) engine PCM")
+    torch.cuda.empty_cache()
+
+    record["offpath"] = _offpath_modules(torch, dev)
+    fails += [f"(e) {k}" for k, r in record["offpath"].items() if not r["ok"]]
+    print(f"sdp: phase 4i in {time.perf_counter() - t_phase:.1f} s")
+    if fails:
+        raise AssertionError(f"phase 4i failed: {fails}")
+    return {k: counts[k] + engine_counts[k] for k in counts}
+
+
 def seeded_state_dict(torch, cfg) -> dict:
     """The serving phases' weights: drawn from ``SEED`` at the config's
     width, the duration head biased, since random weights predict
-    meaningless durations, so a phoneme lasts about e^1.8 − 1 ≈ 5 frames."""
+    meaningless durations, so a phoneme lasts about e^1.8 − 1 ≈ 5 frames.
+    With ``model.use_sdp`` the stochastic duration predictor (registered
+    last, so the other weights are the same) is biased likewise: its
+    sampling ends in the affine logw = (z − m)·e^−logs, set to
+    1.8 + z/e^1.2."""
+    import math
+
     from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
     from vispeech_tpu_torch.text import N_SYMBOLS
 
@@ -3730,6 +4003,10 @@ def seeded_state_dict(torch, cfg) -> dict:
     with torch.no_grad():
         model.duration_predictor.proj.weight.mul_(0.1)
         model.duration_predictor.proj.bias.fill_(1.8)
+        if model.sdp is not None:
+            affine = model.sdp.flows[0]
+            affine.logs[0] = 1.2
+            affine.m[0] = -1.8 * math.exp(1.2)
     return model.state_dict()
 
 
@@ -3836,6 +4113,15 @@ def main() -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"root": ROOT, "card": card_line(), "cp": rec}, default=str))
+        return 0
+    if sys.argv[1:] == ["--sdp"]:
+        _build.build_all()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        rec = {}
+        counts = sdp_phase(torch, load_config(os.path.join(ROOT, "configs", "config.json")),
+                           rec)
+        print(json.dumps({"root": ROOT, "card": card_line(), "launches": counts, "sdp": rec}))
         return 0
     if sys.argv[1:2] == ["--cp-nccl"] and len(sys.argv) == 3:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3945,14 +4231,16 @@ def main() -> int:
         cp_counts = cp_phase(torch, cfg, root, {})
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    sdp_counts = sdp_phase(torch, cfg, {})
 
     # A, B, C and D count the serving run, the VC run, the text phase, the
-    # HTTP phase, the trainer's evals, the model group's eval (rank 0's) and
-    # both ranks of phase 4h; E and F the training run, the 1-rank mesh's and
-    # the model axis's (rank 0's)
+    # HTTP phase, the trainer's evals, the model group's eval (rank 0's),
+    # both ranks of phase 4h and phase 4i's infer and engines; E and F the
+    # training run, the 1-rank mesh's and the model axis's (rank 0's)
     counts = {k: v + vc_counts[k] + text_counts[k] + http_counts[k]
               + trainer_counts.get(k, 0) + tp_counts.get(k, 0) + cp_counts.get(k, 0)
-              for k, v in counts.items()}
+              + sdp_counts[k] for k, v in counts.items()}
     counts.update({k: v + ddp_counts[k] + tp_counts[k] for k, v in train_counts.items()
                    if "_train_" in k})
     kernels = [dict(name=name, route="cuda",

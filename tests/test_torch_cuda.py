@@ -774,3 +774,77 @@ def test_shift_on_a_one_rank_nccl_group(device):
         assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+def _seeded_(module, seed):
+    """Every parameter and buffer of ``module`` drawn from a seed: norm
+    scales 1 + N(0, 0.1²), running variances U(0.5, 1.5), the rest
+    U(±1/√fan_in); the affines of the duration flows N(0, 0.1²)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in [*module.named_parameters(), *module.named_buffers()]:
+            if name.endswith("running_var"):
+                v = 0.5 + torch.rand(p.shape, generator=gen)
+            elif name.endswith(("gamma", "norm.weight", "bn.weight")):
+                v = 1.0 + 0.1 * torch.randn(p.shape, generator=gen)
+            elif name.endswith((".m", ".logs")):
+                v = 0.1 * torch.randn(p.shape, generator=gen)
+            else:
+                fan_in = p[0].numel() if p.dim() > 1 else p.shape[-1]
+                v = (torch.rand(p.shape, generator=gen) * 2 - 1) / fan_in ** 0.5
+            p.copy_(v)
+    return module
+
+
+@pytest.mark.cuda
+def test_sdp_on_the_card_matches_the_cpu(device):
+    """The stochastic duration predictor at full width (hidden 192, a
+    256-wide speaker) on the card against the CPU, noise injected: logw
+    (sampling) within 1e-4 and the NLL within 1e-4 relative, as phase 4i
+    of chip_smoke.py holds them."""
+    from vispeech_tpu_torch.models.predictors import StochasticDurationPredictor
+
+    cpu = _seeded_(StochasticDurationPredictor(192, 192, 3, 0.5, 4, gin_channels=256),
+                   3).eval()
+    card = _seeded_(StochasticDurationPredictor(192, 192, 3, 0.5, 4, gin_channels=256),
+                    3).to(device).eval()
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 80, 192, generator=gen)
+    mask = (torch.arange(80)[None, :] < torch.tensor([80, 61])[:, None]).float()[..., None]
+    g = torch.randn(2, 1, 256, generator=gen)
+    noise = torch.randn(2, 80, 2, generator=gen)
+    w = torch.randint(1, 9, (2, 80, 1), generator=gen).float() * mask
+    on = [t.to(device) for t in (x, mask, g, noise, w)]
+    with torch.no_grad():
+        want = cpu(x, mask, g=g, reverse=True, noise_scale=0.8, noise=noise)
+        got = card(*on[:2], g=on[2], reverse=True, noise_scale=0.8, noise=on[3]).cpu()
+        nll_want = cpu(x, mask, w=w, g=g, noise=noise)
+        nll_got = card(*on[:2], w=on[4], g=on[2], noise=on[3]).cpu()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(nll_got, nll_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_conformer_on_the_card_matches_the_cpu(device):
+    """``ConformerEncoder(192, 2 layers, kernel 31)`` over a padded batch of
+    400 frames, eval and one train-mode forward (its BatchNorms' running
+    statistics), card against CPU within 1e-4 of each peak."""
+    from vispeech_tpu_torch.models.conformer import ConformerEncoder
+
+    cpu = _seeded_(ConformerEncoder(192, n_layers=2, conv_kernel_size=31, p_dropout=0.0), 5)
+    card = _seeded_(ConformerEncoder(192, n_layers=2, conv_kernel_size=31, p_dropout=0.0),
+                    5).to(device)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(2, 400, 192, generator=gen)
+    mask = (torch.arange(400)[None, :] < torch.tensor([400, 310])[:, None]).float()[..., None]
+    for train in (False, True):
+        cpu.train(train)
+        card.train(train)
+        with torch.no_grad():
+            want = cpu(x, mask)
+            got = card(x.to(device), mask.to(device)).cpu()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    for a, b in zip(cpu.buffers(), card.buffers()):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5)

@@ -122,7 +122,10 @@ class TTSEngine:
                          **kw) -> "TTSEngine":
         model = Synthesizer.from_config(cfg, N_SYMBOLS)
         load_flax_params(model, flat, len(cfg.model.resblock_kernel_sizes))
-        return cls(cfg, model.state_dict(), **kw)
+        engine = cls(cfg, model.state_dict(), **kw)
+        if model.sdp is not None:   # what the tree left out stays refused
+            engine.model.sdp.unloaded = model.sdp.unloaded
+        return engine
 
     @classmethod
     def from_checkpoint(cls, config_path: str, ckpt_dir: str, step: Optional[int] = None,

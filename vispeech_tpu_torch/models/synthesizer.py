@@ -3,6 +3,10 @@
 Inference: TextEncoder → duration, pitch and energy heads (with the
 override contract) → length regulator → FramePriorNet → Projection → z_p,
 then the 4 mean-only couplings in reverse → HiFi-GAN generator → tanh.
+With ``use_sdp`` the stochastic duration predictor (``sdp``) samples the
+durations of ``infer`` / ``infer_prior`` under a scalar or no duration
+control; ``predict_durations`` (so the engine), voice conversion and
+training keep the deterministic head, as in the JAX package.
 Voice conversion: the posterior encoder on a linear spectrogram, the
 couplings forward under the source speaker and in reverse under the
 target, then the same generator.
@@ -38,9 +42,10 @@ from vispeech_tpu_torch.models.predictors import (
     DurationPredictor,
     EnergyPredictor,
     PitchPredictor,
+    StochasticDurationPredictor,
 )
 from vispeech_tpu_torch.ops.attention import Encoder, MultiHeadAttention
-from vispeech_tpu_torch.ops.flows import Flip, ResidualCouplingLayer
+from vispeech_tpu_torch.ops.flows import ElementwiseAffine, Flip, ResidualCouplingLayer
 from vispeech_tpu_torch.ops.layers import Conv1d, LayerNorm
 from vispeech_tpu_torch.ops.length_regulator import length_regulate
 from vispeech_tpu_torch.ops.masking import length_mask, rand_slice_segments
@@ -211,9 +216,6 @@ class Synthesizer(nn.Module):
                  segment_size: int = 32, bf16_stages: Tuple[str, ...] = (),
                  train_fused_wn: bool = True, train_fused_attn: bool = True):
         super().__init__()
-        if use_sdp:
-            raise NotImplementedError(
-                "the stochastic duration predictor is not ported yet (use_sdp=false)")
         self.policy = policy
         self.n_speakers = n_speakers
         self.segment_size = segment_size   # frames
@@ -239,6 +241,10 @@ class Synthesizer(nn.Module):
         if n_speakers > 1:
             self.emb_g = nn.Embedding(n_speakers, gin_channels, _weight=torch.empty(
                 n_speakers, gin_channels))
+        # registered last, so that a seed draws the same weights for the
+        # other modules with and without it (random_init_)
+        self.sdp = (StochasticDurationPredictor(h, 192, 3, 0.5, 4, gin_channels=gin_channels)
+                    if use_sdp else None)
         # the training dispatch switches (train.fused_wn, fused_attn); serving
         # reads neither
         for mod in self.modules():
@@ -347,13 +353,15 @@ class Synthesizer(nn.Module):
     def infer(self, phonemes, phoneme_lengths, t_frames: int, sid=None,
               noise_scale: float = 1.0, max_len: Optional[int] = None,
               energy_control=None, pitch_control=None, duration_control=None,
-              eps: Optional[torch.Tensor] = None, generator=None):
+              eps: Optional[torch.Tensor] = None, generator=None,
+              eps_w: Optional[torch.Tensor] = None):
         """→ (audio [B, T·hop, 1], frame_mask, (z, z_p, m_p, logs_p), duration,
-        f0, energy)."""
+        f0, energy).  Noise as ``infer_prior``."""
         z_p, frame_mask, duration, f0, energy, (m_p, logs_p) = self.infer_prior(
             phonemes, phoneme_lengths, t_frames, sid=sid, noise_scale=noise_scale,
             energy_control=energy_control, pitch_control=pitch_control,
-            duration_control=duration_control, eps=eps, generator=generator)
+            duration_control=duration_control, eps=eps, generator=generator,
+            eps_w=eps_w)
         o, z, frame_mask = self.infer_decode(z_p, frame_mask, sid=sid, max_len=max_len)
         return o, frame_mask, (z, z_p, m_p, logs_p), duration, f0, energy
 
@@ -361,10 +369,13 @@ class Synthesizer(nn.Module):
     def infer_prior(self, phonemes, phoneme_lengths, t_frames: int, sid=None,
                     noise_scale: float = 1.0, energy_control=None, pitch_control=None,
                     duration_control=None, eps: Optional[torch.Tensor] = None,
-                    generator=None):
+                    generator=None, eps_w: Optional[torch.Tensor] = None):
         """Text → z_p = m_p + eps·exp(logs_p)·noise_scale over a static
         ``t_frames`` budget.  ``eps`` [B, T, inter] injects the prior noise;
-        None draws it from ``generator``.
+        None draws it from ``generator``.  With the stochastic duration
+        predictor (``use_sdp``) a scalar or None duration control samples
+        logw from it at ``noise_scale``: ``eps_w`` [B, N, 2] injects its
+        noise, else it is drawn from ``generator`` before ``eps``.
         → (z_p, frame_mask, duration, f0 [Hz], energy, (m_p, logs_p))."""
         g = self._speaker(sid)
         x, x_mask = self.enc_p(phonemes, phoneme_lengths)
@@ -372,7 +383,11 @@ class Synthesizer(nn.Module):
         if _is_array(duration_control):
             duration = duration_control.to(x.dtype)
         else:
-            logw = self.duration_predictor(x, x_mask, g=g)
+            if self.sdp is not None:
+                logw = self.sdp(x, x_mask, g=g, reverse=True, noise_scale=noise_scale,
+                                noise=eps_w, generator=generator)
+            else:
+                logw = self.duration_predictor(x, x_mask, g=g)
             w = (torch.exp(logw) * x_mask - 1.0) * _scale(duration_control)
             duration = torch.ceil(w)[..., 0]
 
@@ -453,8 +468,8 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from ``torch.Generator(seed)`` on the CPU, so the
     same seed gives the same weights on any device: convs and linears
     U(±1/√fan_in) (the decoder's weight-normed convs N(0, 0.01)), weight-norm
-    gains = ‖v‖, embeddings and relative tables normal, norms 1 / 0.  Works
-    for the discriminators as well."""
+    gains = ‖v‖, embeddings and relative tables normal, the duration flows'
+    affines N(0, 0.1²), norms 1 / 0.  Works for the discriminators as well."""
     gen = torch.Generator().manual_seed(seed)
 
     def fill(p, values):
@@ -482,10 +497,13 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(mod, nn.Embedding):
             std = mod.embedding_dim ** -0.5 if name.endswith("symbol_emb") else 1.0
             fill(mod.weight, torch.randn(mod.weight.shape, generator=gen) * std)
-        elif isinstance(mod, MultiHeadAttention):
+        elif isinstance(mod, MultiHeadAttention) and mod.emb_rel_k is not None:
             d = mod.emb_rel_k.shape[-1]
             for p in (mod.emb_rel_k, mod.emb_rel_v):
                 fill(p, torch.randn(p.shape, generator=gen) * d ** -0.5)
+        elif isinstance(mod, ElementwiseAffine):
+            for p in (mod.m, mod.logs):
+                fill(p, torch.randn(p.shape, generator=gen) * 0.1)
         elif isinstance(mod, LayerNorm):
             mod.gamma.fill_(1.0)
             mod.beta.zero_()

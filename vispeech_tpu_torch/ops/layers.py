@@ -66,19 +66,20 @@ def _weight_norm(v: torch.Tensor, g: torch.Tensor, dims, squares=None) -> torch.
 
 class Conv1d(nn.Module):
     """1-D convolution; padding None = symmetric (k·d − d)//2, or an int, or
-    (left, right)."""
+    (left, right); ``groups`` splits the channels (``groups`` = channels:
+    depthwise)."""
 
     stride = 1
-    groups = 1
     tp = None   # parallel.tensor.ModelShard of a conv sharded on the model axis
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1, dilation: int = 1,
-                 padding: Padding = None, bias: bool = True):
+                 padding: Padding = None, bias: bool = True, groups: int = 1):
         super().__init__()
-        self.weight = _empty(cout, cin, kernel_size)
+        self.weight = _empty(cout, cin // groups, kernel_size)
         self.bias = _empty(cout) if bias else None
         self.dilation = dilation
         self.pads = _pads(kernel_size, dilation, padding)
+        self.groups = groups
 
     def local_weight(self) -> torch.Tensor:
         """The effective weight of the output channels this rank computes

@@ -21,6 +21,18 @@ def length_mask(lengths: torch.Tensor, max_length: int,
     return sequence_mask(lengths, max_length)[..., None].to(dtype)
 
 
+def intersperse(seq, item):
+    """[a, b] → [item, a, item, b, item] (blank interleaving, on the host)."""
+    out = [item] * (len(seq) * 2 + 1)
+    out[1::2] = seq
+    return out
+
+
+def subsequent_mask(length: int) -> torch.Tensor:
+    """[1, 1, T, T] lower-triangular causal mask (f32)."""
+    return torch.tril(torch.ones(length, length))[None, None]
+
+
 def generate_path(duration: torch.Tensor, t_frames: int) -> torch.Tensor:
     """Durations [B, N] → bool alignment path [B, T, N]:
     path[b, t, n] = cum[n−1] ≤ t < cum[n]."""

@@ -52,7 +52,14 @@ def make_synthesizer_pipeline(model, group: Optional[dist.ProcessGroup], t_frame
     on every rank of ``group`` (its device: the model's), t_out =
     min(max_len, t_frames).  phonemes [B, N], lengths [B], sid [B] or None,
     eps [B, t_frames, inter].  B must divide into ``microbatches`` equal
-    chunks; ``group`` must hold ``N_STAGES`` ranks."""
+    chunks; ``group`` must hold ``N_STAGES`` ranks.  A model with the
+    stochastic duration predictor raises."""
+    if getattr(model, "sdp", None) is not None:
+        raise ValueError(
+            "the pipeline takes no durations, and a model with the stochastic duration "
+            "predictor (use_sdp) would sample them from a noise stream the pipeline does "
+            "not have (the JAX package's pipeline has none either): serve it without "
+            "use_sdp, or call Synthesizer.infer with its noise eps_w")
     S = p2p.size(group)
     if S != N_STAGES:
         raise ValueError(f"pipeline needs a {N_STAGES}-rank 'stage' group, got {S}")
