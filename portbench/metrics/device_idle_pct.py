@@ -1,0 +1,9 @@
+"""The share of the traced window in which no operation ran on the device,
+in %."""
+
+
+def read(record):
+    t = record.get("trace")
+    if not t or not t["window_s"]:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
