@@ -39,6 +39,7 @@ from vispeech_tpu_torch.ops.policy import (
     resolve_device,
 )
 from vispeech_tpu_torch.text import N_SYMBOLS, cleaned_text_to_sequence, text_to_phones
+from vispeech_tpu_torch.utils import profiling
 from vispeech_tpu_torch.utils.jax_weights import load_flax_params
 from vispeech_tpu_torch.utils.reference_import import reference_state_dict
 
@@ -88,12 +89,21 @@ def _is_array(ctrl) -> bool:
 
 
 def _one_at_a_time(method):
-    """Run ``method`` under the engine's lock (see the module docstring)."""
+    """Run ``method`` under the engine's lock (see the module docstring), in
+    an ``engine.call`` span opened once the lock is held."""
     @functools.wraps(method)
     def locked(self, *args, **kwargs):
-        with self._lock:
+        with self._lock, profiling.span("engine.call"):
             return method(self, *args, **kwargs)
     return locked
+
+
+def _plan_span(bucket: int, tier: int):
+    """The ``engine.plan`` span of one (bucket, tier) dispatch, its plan
+    and padded frames counted."""
+    profiling.count("plans")
+    profiling.count("frames_padded", tier * bucket)
+    return profiling.span("engine.plan")
 
 
 class TTSEngine:
@@ -161,10 +171,12 @@ class TTSEngine:
         pred = self.model.predict_durations(
             self._tensor(ph, torch.long), self._tensor(lens, torch.long),
             self._tensor(sids, torch.long))
+        profiling.count("syncs")
         return pred.cpu().numpy()
 
     def _fetch_audio(self, audio: torch.Tensor):
         """(float32 wav rows, int16 rows or None) on the host."""
+        profiling.count("syncs")
         if self.transfer_int16:
             pcm = torch.round(torch.clamp(audio[..., 0], -1.0, 1.0) * 32767.0)
             pcm = pcm.to(torch.int16).cpu().numpy()
@@ -211,33 +223,41 @@ class TTSEngine:
                 dur = np.zeros((1, n_pad), np.float32)
                 dur[0, :n] = np.asarray(duration_control, np.float32).reshape(-1)[:n]
             else:
-                scale = 1.0 if duration_control is None else float(duration_control)
-                dur = np.ceil(np.maximum(self._predicted_durations(ph, [n], [sid]) * scale,
-                                         0.0)).astype(np.float32)
-                dur[0, n:] = 0
+                with profiling.span("engine.durations"):
+                    scale = 1.0 if duration_control is None else float(duration_control)
+                    dur = np.ceil(np.maximum(self._predicted_durations(ph, [n], [sid]) * scale,
+                                             0.0)).astype(np.float32)
+                    dur[0, n:] = 0
             t_frames = pick_bucket(max(int(dur.sum()), 1))
-            pitch_arr, pitch_scale = self._split_control(pitch_control, n_pad, n)
-            energy_arr, energy_scale = self._split_control(energy_control, n_pad, n)
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            audio, frame_mask, _, out_dur, f0, energy = self.model.infer(
-                self._tensor(ph, torch.long), self._tensor([n], torch.long), t_frames,
-                sid=self._tensor([sid], torch.long), noise_scale=noise_scale,
-                duration_control=self._tensor(dur),
-                pitch_control=pitch_arr if pitch_arr is not None else pitch_scale,
-                energy_control=energy_arr if energy_arr is not None else energy_scale,
-                generator=gen)
-            n_samples = int(frame_mask.sum().item()) * self.cfg.data.hop_length
-            wav, pcm = self._fetch_audio(audio)
-        out = {
-            "audio": wav[0, :n_samples],
-            "sampling_rate": self.cfg.data.sampling_rate,
-            "phones": list(phones),
-            "duration": out_dur[0, :n].cpu().numpy(),
-            "f0": f0[0, :n].cpu().numpy(),
-            "energy": energy[0, :n].cpu().numpy(),
-        }
-        if pcm is not None:
-            out["audio_int16"] = pcm[0, :n_samples]
+            with _plan_span(t_frames, 1):
+                with profiling.span("engine.stage"):
+                    pitch_arr, pitch_scale = self._split_control(pitch_control, n_pad, n)
+                    energy_arr, energy_scale = self._split_control(energy_control, n_pad, n)
+                    ph_t, n_t, sid_t = (self._tensor(a, torch.long) for a in (ph, [n], [sid]))
+                    dur_t = self._tensor(dur)
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                audio, frame_mask, _, out_dur, f0, energy = self.model.infer(
+                    ph_t, n_t, t_frames, sid=sid_t, noise_scale=noise_scale,
+                    duration_control=dur_t,
+                    pitch_control=pitch_arr if pitch_arr is not None else pitch_scale,
+                    energy_control=energy_arr if energy_arr is not None else energy_scale,
+                    generator=gen)
+                with profiling.span("engine.fetch"):
+                    n_samples = int(frame_mask.sum().item()) * self.cfg.data.hop_length
+                    wav, pcm = self._fetch_audio(audio)
+                    out_dur, f0, energy = (t[0, :n].cpu().numpy() for t in (out_dur, f0, energy))
+                    profiling.count("syncs", 4)
+                with profiling.span("engine.assemble"):
+                    out = {
+                        "audio": wav[0, :n_samples],
+                        "sampling_rate": self.cfg.data.sampling_rate,
+                        "phones": list(phones),
+                        "duration": out_dur,
+                        "f0": f0,
+                        "energy": energy,
+                    }
+                    if pcm is not None:
+                        out["audio_int16"] = pcm[0, :n_samples]
         return out
 
     @_one_at_a_time
@@ -269,49 +289,55 @@ class TTSEngine:
             for i, n in enumerate(n_list):
                 by_npad.setdefault(self._n_pad(n), []).append(i)
             for n_pad, idxs in by_npad.items():
-                ph = np.zeros((len(idxs), n_pad), np.int64)
-                for r, i in enumerate(idxs):
-                    ph[r, :n_list[i]] = ids_list[i]
-                pred = self._predicted_durations(ph, [n_list[i] for i in idxs],
-                                                 [sids[i] for i in idxs])
-                for r, i in enumerate(idxs):
-                    d = np.ceil(np.maximum(pred[r], 0.0)).astype(np.float32)
-                    d[n_list[i]:] = 0
-                    durs[i] = d
+                with profiling.span("engine.durations"):
+                    ph = np.zeros((len(idxs), n_pad), np.int64)
+                    for r, i in enumerate(idxs):
+                        ph[r, :n_list[i]] = ids_list[i]
+                    pred = self._predicted_durations(ph, [n_list[i] for i in idxs],
+                                                     [sids[i] for i in idxs])
+                    for r, i in enumerate(idxs):
+                        d = np.ceil(np.maximum(pred[r], 0.0)).astype(np.float32)
+                        d[n_list[i]:] = 0
+                        durs[i] = d
             totals = [max(int(d.sum()), 1) for d in durs]
 
             gen = torch.Generator(device=self.device).manual_seed(seed)
             for plan in plan_batches(totals, tiers=tiers or DEFAULT_TIERS):
-                n_pad = self._n_pad(max(n_list[i] for i in plan.indices))
-                B = plan.tier
-                ph = np.zeros((B, n_pad), np.int64)
-                lens = np.ones((B,), np.int64)
-                dur = np.zeros((B, n_pad), np.float32)
-                sid = np.zeros((B,), np.int64)
-                for r, i in enumerate(plan.indices):
-                    ph[r, :n_list[i]] = ids_list[i]
-                    lens[r] = n_list[i]
-                    dur[r, :len(durs[i])] = durs[i][:n_pad]
-                    sid[r] = sids[i]
-                audio, _, _, out_dur, f0, energy = self.model.infer(
-                    self._tensor(ph, torch.long), self._tensor(lens, torch.long),
-                    plan.bucket, sid=self._tensor(sid, torch.long),
-                    noise_scale=noise_scale, duration_control=self._tensor(dur),
-                    generator=gen)
-                wav, pcm = self._fetch_audio(audio)
-                out_dur, f0, energy = (t.cpu().numpy() for t in (out_dur, f0, energy))
-                for r, i in enumerate(plan.indices):
-                    n, n_samples = n_list[i], totals[i] * hop
-                    results[i] = {
-                        "audio": wav[r, :n_samples],
-                        "sampling_rate": self.cfg.data.sampling_rate,
-                        "phones": list(phones_list[i]),
-                        "duration": out_dur[r, :n],
-                        "f0": f0[r, :n],
-                        "energy": energy[r, :n],
-                    }
-                    if pcm is not None:
-                        results[i]["audio_int16"] = pcm[r, :n_samples]
+                with _plan_span(plan.bucket, plan.tier):
+                    with profiling.span("engine.stage"):
+                        n_pad = self._n_pad(max(n_list[i] for i in plan.indices))
+                        B = plan.tier
+                        ph = np.zeros((B, n_pad), np.int64)
+                        lens = np.ones((B,), np.int64)
+                        dur = np.zeros((B, n_pad), np.float32)
+                        sid = np.zeros((B,), np.int64)
+                        for r, i in enumerate(plan.indices):
+                            ph[r, :n_list[i]] = ids_list[i]
+                            lens[r] = n_list[i]
+                            dur[r, :len(durs[i])] = durs[i][:n_pad]
+                            sid[r] = sids[i]
+                        ph, lens, sid = (self._tensor(a, torch.long) for a in (ph, lens, sid))
+                        dur = self._tensor(dur)
+                    audio, _, _, out_dur, f0, energy = self.model.infer(
+                        ph, lens, plan.bucket, sid=sid, noise_scale=noise_scale,
+                        duration_control=dur, generator=gen)
+                    with profiling.span("engine.fetch"):
+                        wav, pcm = self._fetch_audio(audio)
+                        out_dur, f0, energy = (t.cpu().numpy() for t in (out_dur, f0, energy))
+                        profiling.count("syncs", 3)
+                    with profiling.span("engine.assemble"):
+                        for r, i in enumerate(plan.indices):
+                            n, n_samples = n_list[i], totals[i] * hop
+                            results[i] = {
+                                "audio": wav[r, :n_samples],
+                                "sampling_rate": self.cfg.data.sampling_rate,
+                                "phones": list(phones_list[i]),
+                                "duration": out_dur[r, :n],
+                                "f0": f0[r, :n],
+                                "energy": energy[r, :n],
+                            }
+                            if pcm is not None:
+                                results[i]["audio_int16"] = pcm[r, :n_samples]
         return results
 
     # ------------------------------------------------------ voice conversion
@@ -328,17 +354,20 @@ class TTSEngine:
         engine draws it from a fixed key), or ``eps`` [1, bucket, inter]
         injects it.  → {'audio' f32 [frames·hop], 'sampling_rate'}."""
         d = self.cfg.data
-        spec = numpy_spectrogram(np.asarray(wav, np.float32), d.filter_length, d.hop_length,
-                                 d.win_length)
-        t = spec.shape[0]
-        spec_pad = np.zeros((1, pick_bucket(t), spec.shape[1]), np.float32)
-        spec_pad[0, :t] = spec
+        with profiling.span("engine.stage"):
+            spec = numpy_spectrogram(np.asarray(wav, np.float32), d.filter_length, d.hop_length,
+                                     d.win_length)
+            t = spec.shape[0]
+            spec_pad = np.zeros((1, pick_bucket(t), spec.shape[1]), np.float32)
+            spec_pad[0, :t] = spec
+            inputs = (self._tensor(spec_pad), self._tensor([t], torch.long),
+                      self._tensor([self._sid(speaker_src)], torch.long),
+                      self._tensor([self._sid(speaker_tgt)], torch.long))
+            eps = None if eps is None else self._tensor(eps)
         with self.policy.precision():
             gen = torch.Generator(device=self.device).manual_seed(0)
-            audio, _, _ = self.model.voice_conversion(
-                self._tensor(spec_pad), self._tensor([t], torch.long),
-                self._tensor([self._sid(speaker_src)], torch.long),
-                self._tensor([self._sid(speaker_tgt)], torch.long),
-                eps=None if eps is None else self._tensor(eps), generator=gen)
-            wav_out = audio[0, :t * d.hop_length, 0].cpu().numpy()
+            audio, _, _ = self.model.voice_conversion(*inputs, eps=eps, generator=gen)
+            with profiling.span("engine.fetch"):
+                profiling.count("syncs")
+                wav_out = audio[0, :t * d.hop_length, 0].cpu().numpy()
         return {"audio": wav_out, "sampling_rate": d.sampling_rate}

@@ -51,6 +51,7 @@ from vispeech_tpu_torch.ops.length_regulator import length_regulate
 from vispeech_tpu_torch.ops.masking import length_mask, rand_slice_segments
 from vispeech_tpu_torch.ops.policy import FLOAT32, ServingPolicy
 from vispeech_tpu_torch.ops.wavenet import WN
+from vispeech_tpu_torch.utils import profiling
 
 
 logger = logging.getLogger("vispeech_tpu_torch")
@@ -178,16 +179,19 @@ class Projection(nn.Module):
 def _inference(method):
     """Run an inference method under no_grad and in eval mode (no dropout,
     whatever mode the model is in), as the JAX package's deterministic
-    inference; the mode is restored after."""
+    inference; the mode is restored after.  Each switch walks the whole
+    module tree, in a ``modes`` span."""
     @functools.wraps(method)
     def wrapper(self, *args, **kw):
         was_training = self.training
-        self.eval()
+        with profiling.span("modes"):
+            self.eval()
         try:
             with torch.no_grad():
                 return method(self, *args, **kw)
         finally:
-            self.train(was_training)
+            with profiling.span("modes"):
+                self.train(was_training)
     return wrapper
 
 
@@ -377,52 +381,54 @@ class Synthesizer(nn.Module):
         logw from it at ``noise_scale``: ``eps_w`` [B, N, 2] injects its
         noise, else it is drawn from ``generator`` before ``eps``.
         → (z_p, frame_mask, duration, f0 [Hz], energy, (m_p, logs_p))."""
-        g = self._speaker(sid)
-        x, x_mask = self.enc_p(phonemes, phoneme_lengths)
+        with profiling.span("prior"):
+            g = self._speaker(sid)
+            x, x_mask = self.enc_p(phonemes, phoneme_lengths)
 
-        if _is_array(duration_control):
-            duration = duration_control.to(x.dtype)
-        else:
-            if self.sdp is not None:
-                logw = self.sdp(x, x_mask, g=g, reverse=True, noise_scale=noise_scale,
-                                noise=eps_w, generator=generator)
+            if _is_array(duration_control):
+                duration = duration_control.to(x.dtype)
             else:
-                logw = self.duration_predictor(x, x_mask, g=g)
-            w = (torch.exp(logw) * x_mask - 1.0) * _scale(duration_control)
-            duration = torch.ceil(w)[..., 0]
+                if self.sdp is not None:
+                    logw = self.sdp(x, x_mask, g=g, reverse=True, noise_scale=noise_scale,
+                                    noise=eps_w, generator=generator)
+                else:
+                    logw = self.duration_predictor(x, x_mask, g=g)
+                w = (torch.exp(logw) * x_mask - 1.0) * _scale(duration_control)
+                duration = torch.ceil(w)[..., 0]
 
-        if _is_array(pitch_control):
-            lf0 = f0_to_lf0(pitch_control.to(x.dtype))
-        else:
-            lf0 = self.pitch_predictor(x, x_mask, g=g) * _scale(pitch_control)
-        x = x + self.pitch_prenet(lf0[..., None])
-        f0 = lf0_to_f0(lf0)
+            if _is_array(pitch_control):
+                lf0 = f0_to_lf0(pitch_control.to(x.dtype))
+            else:
+                lf0 = self.pitch_predictor(x, x_mask, g=g) * _scale(pitch_control)
+            x = x + self.pitch_prenet(lf0[..., None])
+            f0 = lf0_to_f0(lf0)
 
-        if _is_array(energy_control):
-            norm_energy = normalize_energy(energy_control.to(x.dtype))
-        else:
-            pred = self.energy_predictor(x, g=g)
-            norm_energy = normalize_energy(denormalize_energy(pred)
-                                           * _scale(energy_control))
-        x = x + self.energy_prenet(norm_energy[..., None])
-        energy = denormalize_energy(norm_energy)
+            if _is_array(energy_control):
+                norm_energy = normalize_energy(energy_control.to(x.dtype))
+            else:
+                pred = self.energy_predictor(x, g=g)
+                norm_energy = normalize_energy(denormalize_energy(pred)
+                                               * _scale(energy_control))
+            x = x + self.energy_prenet(norm_energy[..., None])
+            energy = denormalize_energy(norm_energy)
 
-        x_frame, frame_lengths = length_regulate(x, duration, t_frames)
-        frame_mask = length_mask(frame_lengths, t_frames, x.dtype)
-        x_frame = self.frame_prior_net(x_frame, frame_mask)
-        m_p, logs_p = self.project(x_frame, frame_mask)
-        if eps is None:
-            eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,
-                              dtype=m_p.dtype)
-        z_p = m_p + eps * torch.exp(logs_p) * noise_scale
-        return z_p, frame_mask, duration, f0, energy, (m_p, logs_p)
+            x_frame, frame_lengths = length_regulate(x, duration, t_frames)
+            frame_mask = length_mask(frame_lengths, t_frames, x.dtype)
+            x_frame = self.frame_prior_net(x_frame, frame_mask)
+            m_p, logs_p = self.project(x_frame, frame_mask)
+            if eps is None:
+                eps = torch.randn(m_p.shape, generator=generator, device=m_p.device,
+                                  dtype=m_p.dtype)
+            z_p = m_p + eps * torch.exp(logs_p) * noise_scale
+            return z_p, frame_mask, duration, f0, energy, (m_p, logs_p)
 
     @_inference
     def infer_decode(self, z_p, frame_mask, sid=None, max_len: Optional[int] = None):
         """Flow reverse → vocoder in the policy's decode dtype.
         → (audio [B, T·hop, 1] f32, z, frame_mask)."""
         g = self._speaker(sid)
-        z = self.flow(z_p, frame_mask, g=g, reverse=True) * frame_mask
+        with profiling.span("flow"):
+            z = self.flow(z_p, frame_mask, g=g, reverse=True) * frame_mask
         if max_len is not None:
             z, frame_mask = z[:, :max_len], frame_mask[:, :max_len]
         return self._decode(z, g), z, frame_mask
@@ -431,8 +437,9 @@ class Synthesizer(nn.Module):
         """The vocoder in the policy's decode dtype (fused: kernels C and D
         at the narrow stages) → audio [B, T·hop, 1] f32."""
         dtype = self.policy.torch_decode_dtype
-        o = self.dec(z.to(dtype), g=None if g is None else g.to(dtype))
-        return o.float()
+        with profiling.span("vocoder"):
+            o = self.dec(z.to(dtype), g=None if g is None else g.to(dtype))
+            return o.float()
 
     @_inference
     def voice_conversion(self, spec, spec_lengths, sid_src, sid_tgt,
@@ -456,11 +463,12 @@ class Synthesizer(nn.Module):
     @_inference
     def predict_durations(self, phonemes, phoneme_lengths, sid=None):
         """Duration-only pass → frame counts [B, N] (≥ 0)."""
-        g = self._speaker(sid)
-        x, x_mask = self.enc_p(phonemes, phoneme_lengths)
-        logw = self.duration_predictor(x, x_mask, g=g)
-        w = torch.exp(logw) * x_mask - 1.0
-        return torch.clamp(torch.ceil(w), min=0.0)[..., 0]
+        with profiling.span("prior"):
+            g = self._speaker(sid)
+            x, x_mask = self.enc_p(phonemes, phoneme_lengths)
+            logw = self.duration_predictor(x, x_mask, g=g)
+            w = torch.exp(logw) * x_mask - 1.0
+            return torch.clamp(torch.ceil(w), min=0.0)[..., 0]
 
 
 @torch.no_grad()
