@@ -38,10 +38,11 @@ from vispeech_tpu.models import Synthesizer as JaxSynthesizer
 from vispeech_tpu.ops.policy import FLOAT32_XLA
 from vispeech_tpu.text.symbols import N_SYMBOLS as JAX_N_SYMBOLS
 from vispeech_tpu_torch.config import config_from_dict
+from vispeech_tpu_torch.infer.batching import plan_batches
 from vispeech_tpu_torch.infer.pipeline import TTSEngine
 from vispeech_tpu_torch.models.synthesizer import Synthesizer, random_init_
 from vispeech_tpu_torch.ops import policy as port_policy
-from vispeech_tpu_torch.text import N_SYMBOLS
+from vispeech_tpu_torch.text import N_SYMBOLS, cleaned_text_to_sequence
 from vispeech_tpu_torch.utils.jax_weights import load_flax_params
 
 
@@ -268,6 +269,132 @@ class TestEngine:
 
         sr, data = wavfile.read(wav)
         assert sr == 8000 and data.dtype == np.int16 and len(data) > 0
+
+
+# six short requests and one long: with tiers (2, 1), three plans at one
+# bucket and one at another
+PIPELINE_TEXTS = TEXTS * 2 + ["[P]" + " ".join(["ni2 hao3"] * 12) + "[P]"]
+PIPELINE_TIERS = (2, 1)
+
+
+@pytest.fixture(scope="module")
+def pcm_engine(models):
+    return TTSEngine(models["pcfg"], models["pm"].state_dict(), device="cpu",
+                     transfer_int16=True)
+
+
+def _plan_by_plan(engine, texts, speakers, seed, noise_scale=0.667):
+    """``synthesize_batch`` written out as a plain loop: a duration pass per
+    phoneme padding, then each plan staged, inferred and fetched before the
+    next, the noise from one generator → [(int16, duration, f0, energy)]."""
+    model = engine.model
+    ids = [cleaned_text_to_sequence(engine.phonemes(t)) for t in texts]
+    n_list = [len(x) for x in ids]
+    pads = [-(-n // 32) * 32 for n in n_list]
+    durs = [None] * len(texts)
+    for pad in sorted(set(pads)):
+        idxs = [i for i, p in enumerate(pads) if p == pad]
+        ph = np.zeros((len(idxs), pad), np.int64)
+        for r, i in enumerate(idxs):
+            ph[r, :n_list[i]] = ids[i]
+        pred = model.predict_durations(_t(ph), _t([n_list[i] for i in idxs]),
+                                       sid=_t([speakers[i] for i in idxs])).numpy()
+        for r, i in enumerate(idxs):
+            durs[i] = np.ceil(np.maximum(pred[r], 0.0)).astype(np.float32)
+            durs[i][n_list[i]:] = 0
+    totals = [max(int(d.sum()), 1) for d in durs]
+    gen = torch.Generator().manual_seed(seed)
+    out = [None] * len(texts)
+    plans = plan_batches(totals, tiers=PIPELINE_TIERS)
+    for plan in plans:
+        pad = max(pads[i] for i in plan.indices)
+        ph = np.zeros((plan.tier, pad), np.int64)
+        lens = np.ones(plan.tier, np.int64)
+        dur = np.zeros((plan.tier, pad), np.float32)
+        sid = np.zeros(plan.tier, np.int64)
+        for r, i in enumerate(plan.indices):
+            ph[r, :n_list[i]] = ids[i]
+            lens[r] = n_list[i]
+            dur[r, :len(durs[i])] = durs[i]
+            sid[r] = speakers[i]
+        audio, _, _, d, f0, energy = model.infer(
+            _t(ph), _t(lens), plan.bucket, sid=_t(sid), noise_scale=noise_scale,
+            duration_control=_t(dur), generator=gen)
+        pcm = torch.round(torch.clamp(audio[..., 0], -1.0, 1.0) * 32767.0).to(torch.int16)
+        for r, i in enumerate(plan.indices):
+            n = n_list[i]
+            out[i] = (pcm[r, :totals[i] * HOP].numpy(), d[r, :n].numpy(),
+                      f0[r, :n].numpy(), energy[r, :n].numpy())
+    return out, plans
+
+
+def _snapshot(results):
+    return [{k: np.array(r[k]) for k in ("audio", "audio_int16", "duration", "f0", "energy")}
+            for r in results]
+
+
+def _assert_same(results, snapshot):
+    assert len(results) == len(snapshot)
+    for r, s in zip(results, snapshot):
+        for k, v in s.items():
+            assert r[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(r[k], v, err_msg=k)
+
+
+class TestBatchPipeline:
+    """``synthesize_batch`` issues plan k + 1 before it waits on plan k: the
+    same plans, padding and noise draws, so the same bits as the plain loop;
+    results own their memory; a call that raises leaves the engine whole."""
+
+    SPEAKERS = [0, 1, 2, 3, 1, 0, 2]
+
+    def _call(self, engine, texts=PIPELINE_TEXTS, seed=11):
+        return engine.synthesize_batch(texts=texts, speakers=self.SPEAKERS[:len(texts)],
+                                       noise_scale=0.667, seed=seed, tiers=PIPELINE_TIERS)
+
+    def test_bit_equal_to_the_plan_loop(self, pcm_engine):
+        ref, plans = _plan_by_plan(pcm_engine, PIPELINE_TEXTS, self.SPEAKERS, seed=11)
+        assert len(plans) >= 4 and len({p.bucket for p in plans}) >= 2
+        out = self._call(pcm_engine)
+        for r, (pcm, d, f0, energy) in zip(out, ref):
+            assert r["audio_int16"].dtype == np.int16
+            np.testing.assert_array_equal(r["audio_int16"], pcm)
+            np.testing.assert_array_equal(r["audio"], pcm.astype(np.float32) / 32767.0)
+            np.testing.assert_array_equal(r["duration"], d)
+            np.testing.assert_array_equal(r["f0"], f0)
+            np.testing.assert_array_equal(r["energy"], energy)
+        assert len({int(abs(r["audio_int16"]).max()) for r in out}) > 1
+
+    def test_results_own_their_memory(self, pcm_engine):
+        first = self._call(pcm_engine)
+        kept = _snapshot(first)
+        self._call(pcm_engine, texts=PIPELINE_TEXTS[::-1][:5], seed=12)
+        self._call(pcm_engine, texts=[TEXTS[2]] * 7, seed=13)
+        _assert_same(first, kept)
+        arrays = [r[k] for r in first for k in ("audio", "audio_int16", "duration", "f0",
+                                                "energy")]
+        slots = [b.numpy() for slot in pcm_engine._slots for b in slot.buffers.values()]
+        assert slots and not any(np.shares_memory(a, b) for a in arrays for b in slots)
+        assert not any(np.shares_memory(a, b) for j, a in enumerate(arrays)
+                       for b in arrays[j + 1:])
+
+    def test_a_raising_plan_drains(self, pcm_engine, monkeypatch):
+        before = _snapshot(self._call(pcm_engine))
+        infer = pcm_engine.model.infer
+        calls = []
+
+        def third_raises(*args, **kw):
+            calls.append(1)
+            if len(calls) == 3:
+                raise RuntimeError("plan 3 failed")
+            return infer(*args, **kw)
+
+        monkeypatch.setattr(pcm_engine.model, "infer", third_raises)
+        with pytest.raises(RuntimeError, match="plan 3 failed"):
+            self._call(pcm_engine)
+        monkeypatch.undo()
+        assert not pcm_engine._lock.locked()
+        _assert_same(self._call(pcm_engine), before)
 
 
 class TestDeviceAndPolicy:

@@ -1,10 +1,11 @@
 """The program's span and counter recorder (``utils/profiling.py``) on the
 serving path, at a tiny configuration on the CPU: off it records nothing and
 changes no output; on, one ``synthesize_batch`` gives one ``engine.call``,
-an ``engine.durations`` a phoneme-padding group and an ``engine.plan`` a
-(bucket, tier) plan with the model's layers, its mode switches and the
-engine's host steps inside, and counters that match the plans; spans nest
-by thread."""
+an ``engine.durations`` a phoneme-padding group, an ``engine.plan`` a
+(bucket, tier) plan with its staging, the model's layers and mode switches
+inside, and an ``engine.fetch`` and ``engine.assemble`` a plan beside it,
+plan k's opening after plan k + 1 was issued (the depth-1 pipeline), and
+counters that match the plans; spans nest by thread."""
 
 import threading
 
@@ -32,7 +33,7 @@ CFG = {
 # two phoneme paddings (32 and 64); tiers 4 + 2 + 1 at one bucket
 TEXTS = (["[P]ni2 hao3 shi4 jie4[P]", "[P]zai4 jian4[P]", "[P]wo3 men5 zou3 ba5 hao3 de5[P]"] * 2
          + ["[P]" + " ".join(["ni2 hao3"] * 12) + "[P]"])
-PLAN_CHILDREN = ["engine.stage", "prior", "flow", "vocoder", "engine.fetch", "engine.assemble"]
+PLAN_CHILDREN = ["engine.stage", "prior", "flow", "vocoder"]
 # ``infer``, ``infer_prior`` and ``infer_decode`` each switch to eval mode and back
 PLAN_MODES = 6
 
@@ -139,6 +140,24 @@ def test_batch_call_spans(engine):
         child_ns = sum(c["end_ns"] - c["start_ns"] for c in spans if c["parent"] == s["id"])
         assert s["self_ns"] == s["end_ns"] - s["start_ns"] - child_ns
 
+    # one fetch and one assemble a plan, under the call, each fetch right
+    # before its assemble; plan k's fetch opens after plan k + 1's prior
+    fetches = sorted((s for s in spans if s["name"] == "engine.fetch"),
+                     key=lambda s: s["start_ns"])
+    assembles = sorted((s for s in spans if s["name"] == "engine.assemble"),
+                       key=lambda s: s["start_ns"])
+    assert len(fetches) == len(assembles) == len(plans) > 1
+    assert all(s["parent"] == call["id"] for s in fetches + assembles)
+    for f, a in zip(fetches, assembles):
+        assert f["end_ns"] <= a["start_ns"]
+    plan_spans.sort(key=lambda s: s["start_ns"])
+    priors = [next(c for c in spans if c["parent"] == p["id"] and c["name"] == "prior")
+              for p in plan_spans]
+    for k, f in enumerate(fetches[:-1]):
+        assert priors[k + 1]["start_ns"] < f["start_ns"]
+        assert plan_spans[k + 1]["end_ns"] <= f["start_ns"]
+    assert plan_spans[-1]["end_ns"] <= fetches[-1]["start_ns"]
+
 
 def test_counters_match_the_plans(engine):
     out, got = _recorded(lambda: _batch(engine))
@@ -146,7 +165,10 @@ def test_counters_match_the_plans(engine):
     assert got["counters"] == {
         "plans": len(plans),
         "frames_padded": sum(p.tier * p.bucket for p in plans),
-        "syncs": 4 * len(plans) + len(_groups(out)),
+        # one wait a plan, on its copies' event, and one a duration pass
+        "syncs": len(plans) + len(_groups(out)),
+        # every plan but the last is fetched with the next one issued
+        "plans_overlapped": len(plans) - 1,
     }
 
 

@@ -4,10 +4,13 @@ Text → phoneme ids padded to a multiple of 32 → a duration-only pass →
 frame bucket → ``Synthesizer.infer`` → int16 PCM quantised on the device.
 Scalar controls multiply the predictions; per-phoneme arrays replace them.
 ``synthesize_batch`` groups requests by frame bucket into batch tiers and
-runs the plans one after another on the current stream (sequential
-dispatch; no side-stream overlap in this version).  ``voice_conversion``
-takes a waveform: host linear spectrogram → serving bucket →
-``Synthesizer.voice_conversion`` → f32 audio.
+runs the plans as a depth-1 pipeline on the current stream: each plan's
+inputs go up and its PCM, durations, f0 and energy come back by
+non-blocking copies through pinned host buffers, and the host waits on
+plan k's copies only after it has issued plan k + 1, so that the device
+computes the next plan while the host converts and assembles the last.
+``voice_conversion`` takes a waveform: host linear spectrogram → serving
+bucket → ``Synthesizer.voice_conversion`` → f32 audio.
 
 One engine call runs at a time: ``synthesize``, ``synthesize_batch`` and
 ``voice_conversion`` hold the engine's lock, since they share process-wide
@@ -106,6 +109,39 @@ def _plan_span(bucket: int, tier: int):
     return profiling.span("engine.plan")
 
 
+class _HostSlot:
+    """The host side of one plan in flight: its staged inputs and fetched
+    outputs in flat buffers, pinned on a CUDA engine, and the event recorded
+    after its copies to the host.  ``synthesize_batch`` alternates two, so a
+    slot is written again only after the plan that last used it was waited
+    on and read."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.buffers: Dict[str, torch.Tensor] = {}
+        self.event = torch.cuda.Event() if self.pinned else None
+
+    def view(self, key: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A contiguous ``shape`` view of buffer ``key``, which grows (to a
+        power of two elements, as the pinned allocator rounds) when it is
+        too small."""
+        n = int(np.prod(shape))
+        buf = self.buffers.get(key)
+        if buf is None or buf.dtype != dtype or buf.numel() < n:
+            size = 1 << max(n - 1, 0).bit_length()
+            buf = self.buffers[key] = torch.empty(size, dtype=dtype, pin_memory=self.pinned)
+        return buf[:n].view(shape)
+
+    def record(self) -> None:
+        if self.event is not None:
+            self.event.record(torch.cuda.current_stream(self.device))
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
 class TTSEngine:
     """Builds the model once on ``device`` (CUDA unless told ``"cpu"``), then
     synthesizes repeatedly."""
@@ -126,6 +162,7 @@ class TTSEngine:
                                else bool(transfer_int16))
         self.spk2id = dict(cfg.data.spk2id)
         self._lock = threading.Lock()
+        self._slots = (_HostSlot(self.device), _HostSlot(self.device))
 
     @classmethod
     def from_flax_params(cls, cfg: Config, flat: Mapping[str, np.ndarray],
@@ -174,14 +211,17 @@ class TTSEngine:
         profiling.count("syncs")
         return pred.cpu().numpy()
 
-    def _fetch_audio(self, audio: torch.Tensor):
-        """(float32 wav rows, int16 rows or None) on the host."""
-        profiling.count("syncs")
+    def _fetch_audio(self, audio: torch.Tensor) -> torch.Tensor:
+        """The rows of ``audio`` [B, samples, 1] that a fetch copies to the
+        host: int16 PCM quantised on the device with ``transfer_int16`` (half
+        the bytes of f32), else the f32 samples."""
         if self.transfer_int16:
-            pcm = torch.round(torch.clamp(audio[..., 0], -1.0, 1.0) * 32767.0)
-            pcm = pcm.to(torch.int16).cpu().numpy()
-            return pcm.astype(np.float32) / 32767.0, pcm
-        return audio[..., 0].cpu().numpy(), None
+            return torch.round(torch.clamp(audio[..., 0], -1.0, 1.0) * 32767.0).to(torch.int16)
+        return audio[..., 0]
+
+    def _wav(self, pcm: np.ndarray) -> np.ndarray:
+        """f32 audio of fetched rows (``_fetch_audio``'s)."""
+        return pcm.astype(np.float32) / 32767.0 if self.transfer_int16 else pcm
 
     def _split_control(self, ctrl: Control, n_pad: int, n: int):
         """Array control → (padded [1, n_pad] tensor, None); scalar → (None, scale)."""
@@ -244,9 +284,10 @@ class TTSEngine:
                     generator=gen)
                 with profiling.span("engine.fetch"):
                     n_samples = int(frame_mask.sum().item()) * self.cfg.data.hop_length
-                    wav, pcm = self._fetch_audio(audio)
+                    pcm = self._fetch_audio(audio).cpu().numpy()
+                    wav = self._wav(pcm)
                     out_dur, f0, energy = (t[0, :n].cpu().numpy() for t in (out_dur, f0, energy))
-                    profiling.count("syncs", 4)
+                    profiling.count("syncs", 5)
                 with profiling.span("engine.assemble"):
                     out = {
                         "audio": wav[0, :n_samples],
@@ -256,7 +297,7 @@ class TTSEngine:
                         "f0": f0,
                         "energy": energy,
                     }
-                    if pcm is not None:
+                    if self.transfer_int16:
                         out["audio_int16"] = pcm[0, :n_samples]
         return out
 
@@ -268,8 +309,10 @@ class TTSEngine:
                          tiers: Optional[Sequence[int]] = None) -> List[Dict[str, object]]:
         """Bulk synthesis: predicted durations per request, then one dispatch
         per (bucket, tier) plan.  Order-preserving; same fields as
-        ``synthesize``.  The prior noise for all plans comes from one
-        generator seeded with ``seed``, drawn in plan order."""
+        ``synthesize``, each result owning its arrays.  The prior noise for
+        all plans comes from one generator seeded with ``seed``, drawn in
+        plan order.  The plans run as a depth-1 pipeline (module
+        docstring): one host wait a plan, on its copies' event."""
         if phones_list is None:
             if texts is None:
                 raise ValueError("need texts or phones_list")
@@ -282,6 +325,31 @@ class TTSEngine:
         n_list = [len(ids) for ids in ids_list]
         hop = self.cfg.data.hop_length
         results: List[Optional[Dict[str, object]]] = [None] * R
+
+        def collect(plan, slot: _HostSlot, fetched: Sequence[torch.Tensor]) -> None:
+            """Wait on ``plan``'s copies, then copy its rows out of ``slot``."""
+            with profiling.span("engine.fetch"):
+                slot.wait()
+                profiling.count("syncs")
+                pcm, out_dur, f0, energy = (t.numpy() for t in fetched)
+                rows = []
+                for r, i in enumerate(plan.indices):
+                    n = n_list[i]
+                    samples = pcm[r, :totals[i] * hop].copy()
+                    rows.append((i, samples, self._wav(samples), out_dur[r, :n].copy(),
+                                 f0[r, :n].copy(), energy[r, :n].copy()))
+            with profiling.span("engine.assemble"):
+                for i, samples, wav, d, f, e in rows:
+                    results[i] = {
+                        "audio": wav,
+                        "sampling_rate": self.cfg.data.sampling_rate,
+                        "phones": list(phones_list[i]),
+                        "duration": d,
+                        "f0": f,
+                        "energy": e,
+                    }
+                    if self.transfer_int16:
+                        results[i]["audio_int16"] = samples
 
         with self.policy.precision():
             durs: List[Optional[np.ndarray]] = [None] * R
@@ -302,42 +370,50 @@ class TTSEngine:
             totals = [max(int(d.sum()), 1) for d in durs]
 
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            for plan in plan_batches(totals, tiers=tiers or DEFAULT_TIERS):
-                with _plan_span(plan.bucket, plan.tier):
-                    with profiling.span("engine.stage"):
-                        n_pad = self._n_pad(max(n_list[i] for i in plan.indices))
-                        B = plan.tier
-                        ph = np.zeros((B, n_pad), np.int64)
-                        lens = np.ones((B,), np.int64)
-                        dur = np.zeros((B, n_pad), np.float32)
-                        sid = np.zeros((B,), np.int64)
-                        for r, i in enumerate(plan.indices):
-                            ph[r, :n_list[i]] = ids_list[i]
-                            lens[r] = n_list[i]
-                            dur[r, :len(durs[i])] = durs[i][:n_pad]
-                            sid[r] = sids[i]
-                        ph, lens, sid = (self._tensor(a, torch.long) for a in (ph, lens, sid))
-                        dur = self._tensor(dur)
-                    audio, _, _, out_dur, f0, energy = self.model.infer(
-                        ph, lens, plan.bucket, sid=sid, noise_scale=noise_scale,
-                        duration_control=dur, generator=gen)
-                    with profiling.span("engine.fetch"):
-                        wav, pcm = self._fetch_audio(audio)
-                        out_dur, f0, energy = (t.cpu().numpy() for t in (out_dur, f0, energy))
-                        profiling.count("syncs", 3)
-                    with profiling.span("engine.assemble"):
-                        for r, i in enumerate(plan.indices):
-                            n, n_samples = n_list[i], totals[i] * hop
-                            results[i] = {
-                                "audio": wav[r, :n_samples],
-                                "sampling_rate": self.cfg.data.sampling_rate,
-                                "phones": list(phones_list[i]),
-                                "duration": out_dur[r, :n],
-                                "f0": f0[r, :n],
-                                "energy": energy[r, :n],
-                            }
-                            if pcm is not None:
-                                results[i]["audio_int16"] = pcm[r, :n_samples]
+            in_flight = None   # (plan, slot, host views) issued, not yet collected
+            try:
+                for k, plan in enumerate(plan_batches(totals, tiers=tiers or DEFAULT_TIERS)):
+                    slot = self._slots[k % 2]
+                    with _plan_span(plan.bucket, plan.tier):
+                        with profiling.span("engine.stage"):
+                            n_pad = self._n_pad(max(n_list[i] for i in plan.indices))
+                            B = plan.tier
+                            staged = (slot.view("ph", (B, n_pad), torch.long),
+                                      slot.view("lens", (B,), torch.long),
+                                      slot.view("dur", (B, n_pad), torch.float32),
+                                      slot.view("sid", (B,), torch.long))
+                            ph, lens, dur, sid = (t.numpy() for t in staged)
+                            ph.fill(0)
+                            lens.fill(1)
+                            dur.fill(0.0)
+                            sid.fill(0)
+                            for r, i in enumerate(plan.indices):
+                                ph[r, :n_list[i]] = ids_list[i]
+                                lens[r] = n_list[i]
+                                dur[r, :len(durs[i])] = durs[i][:n_pad]
+                                sid[r] = sids[i]
+                            ph, lens, dur, sid = (t.to(self.device, non_blocking=True)
+                                                  for t in staged)
+                        audio, _, _, out_dur, f0, energy = self.model.infer(
+                            ph, lens, plan.bucket, sid=sid, noise_scale=noise_scale,
+                            duration_control=dur, generator=gen)
+                        fetched = [slot.view(key, t.shape, t.dtype).copy_(t, non_blocking=True)
+                                   for key, t in (("pcm", self._fetch_audio(audio)),
+                                                  ("out_dur", out_dur), ("f0", f0),
+                                                  ("energy", energy))]
+                        slot.record()
+                    if in_flight is not None:
+                        profiling.count("plans_overlapped")
+                        collect(*in_flight)
+                    in_flight = (plan, slot, fetched)
+                if in_flight is not None:
+                    collect(*in_flight)
+            except BaseException:
+                # drain: nothing a failed call queued (inputs read from a slot,
+                # copies into one) may outlive it
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                raise
         return results
 
     # ------------------------------------------------------ voice conversion
